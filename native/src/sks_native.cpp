@@ -1,4 +1,4 @@
-// sks_native — CPU-side runtime for the TPU framework.
+// sks_native — CPU-side runtime for the sks_tpu framework.
 //
 // Capability parity with the reference's C++ stack: the scalar ACA/SKS
 // solvers (modules/ACA_SKS.cpp), the wall-fixture reader
@@ -8,9 +8,9 @@
 // derivation as sks_tpu/ops/aca.py (see that module's docstring for the
 // math); templated over float/double instead of duplicated sources.
 //
-// Role in the TPU framework: fp64 oracle for solver parity tests (TPU has no
-// native f64), host-side data loading, and the reference-comparable CPU
-// latency numbers (BASELINE.md Table 5).
+// Role in the framework: independent fp64 oracle for solver parity tests,
+// host-side data loading, and the reference-comparable CPU latency numbers
+// (BASELINE.md Table 5).
 
 #include <algorithm>
 #include <chrono>
@@ -413,7 +413,7 @@ inline void jacobi_smallest_col(T a[N][N], T* v_out, int sweeps) {
   T v[N][N] = {};
   for (int i = 0; i < N; ++i) v[i][i] = T(1);
   for (int s = 0; s < sweeps; ++s) {
-    // Converged? (CPU-side luxury the lane-parallel TPU kernel forgoes:
+    // Converged? (CPU-side luxury the branch-free batched XLA form forgoes:
     // data-dependent early exit once the off-diagonal mass is negligible.)
     T off = T(0), dia = T(0);
     for (int p = 0; p < N; ++p) {

@@ -1,13 +1,13 @@
-"""sks_tpu — TPU-native homography / planar-SfM framework.
+"""sks_tpu — homography / planar-SfM framework in JAX.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
+A JAX/XLA framework with the capabilities of the reference
 SKS-Homography repository (closed-form SKS / ACA 4-point homography
-decompositions plus the classical baselines), redesigned TPU-first:
+decompositions plus the classical baselines), designed around batched,
+fixed-shape accelerator programs:
 
 - one canonical *batched* formulation of every solver, ``(..., 4, 2) -> (..., 3, 3)``,
   dtype-polymorphic (bf16/f32/f64) instead of the reference's four hand-duplicated
   stacks (scalar C++ fp32/fp64, CUDA, PyTorch, MATLAB);
-- Pallas kernels for the hot path (fused hypothesis solve + RANSAC scoring);
 - fixed-shape vectorized RANSAC/MAGSAC;
 - homography -> pose recovery, pose-graph optimization and bundle adjustment,
   sharded over a ``jax.sharding.Mesh`` with XLA collectives.
@@ -26,11 +26,11 @@ import os as _os
 
 import jax as _jax
 
-# Geometry arithmetic MUST run matmuls in full f32: the TPU's default
-# bf16-input matmul (8 mantissa bits) puts ~0.4% relative error on every
-# 3x3 homography/pose product — ~2-3 px at 640-px coordinates — which was
-# measured collapsing a 205-inlier consensus to 53 through the polish
-# denormalization (t2i @ h @ t1) on real hardware, while identical code was
+# Geometry arithmetic MUST run matmuls in full f32.  A GPU's default float32
+# matmul may run in TF32 (10 mantissa bits): ~0.1% relative error on every
+# 3x3 homography/pose product, ~0.5-1 px at 640-px coordinates.  A reduced-
+# precision matmul was once measured collapsing a 205-inlier consensus to 53
+# through the polish denormalization (t2i @ h @ t1) while identical code was
 # correct on CPU.  Pixel-precision geometry everywhere in this package
 # (pose chains, SL(3) warps, denormalizations) has the same hazard, so the
 # package sets the f32-accumulation default once here rather than trusting
@@ -44,8 +44,8 @@ import jax as _jax
 # degraded/overrode host defaults).  The hottest geometry sites
 # (solvers, polish, tracking, pose recovery) pass ``precision=`` at the
 # call, so core accuracy survives an opt-out; small 3x3 chain products
-# elsewhere rely on the default, so opting out on TPU trades a few ULPs of
-# pose-chain precision for host-app throughput — the caller's choice.
+# elsewhere rely on the default, so opting out trades pose-chain precision
+# for host-app throughput — the caller's choice.
 if not _os.environ.get("SKS_TPU_NO_GLOBAL_PRECISION"):
     _explicit = (
         _os.environ.get("JAX_DEFAULT_MATMUL_PRECISION") is not None

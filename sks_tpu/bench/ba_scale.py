@@ -3,8 +3,8 @@
 Round-1 review: the sharded-BA tests used K=3, L~64; this CLI runs the
 landmark-sharded Schur solver (``parallel.sharded_ba``) at production scale
 (default K=20, L=10,240) on whatever mesh the backend offers (the virtual
-8-device CPU mesh in CI; real chips on TPU), reporting time/iteration and
-the convergence trace.
+8-device CPU mesh in CI; the host's GPUs on a card), reporting time/iteration
+and the convergence trace.
 
 Run:  python -m sks_tpu.bench.ba_scale [--cams 20] [--points 10240]
       [--iters 8] [--out bench_results/BA_SCALE.json]

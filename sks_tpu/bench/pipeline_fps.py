@@ -2,14 +2,14 @@
 
 Measures the ONE-JIT frames->poses pipeline (``slam.pipeline``) end to end —
 pixels in, trajectory out — with the chained-dispatch methodology
-(``bench/chained.py``): K serialized pipeline invocations in one dispatch,
-two-point K fit to cancel dispatch overhead.  Run on the real TPU chip for
-the headline frames/s/chip; the 8-way CPU-mesh equality (sharded ==
+(``bench/table8.measure_chained``): K serialized pipeline invocations in one dispatch,
+two-point K fit to cancel dispatch overhead.  Run on the card for frames/s;
+the 8-way CPU-mesh equality (sharded ==
 single-device, bit-identical) is proven in tests/test_pipeline.py and the
 driver dryrun.
 
 Run:  python -m sks_tpu.bench.pipeline_fps [--frames 16] [--shape 240 320]
-      [--out bench_results/PIPELINE_FPS.json]
+      [--out PATH]
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ __all__ = ["measure_pipeline_fps", "measure_capstone_fps"]
 def measure_pipeline_fps(num_frames: int = 16, shape=(240, 320),
                          num_corners: int = 384, hypotheses: int = 1024,
                          k1: int = 2, k2: int = 8, esm_iters: int = 0) -> dict:
-    """Frames/s of the fused pipeline on the default backend (chained)."""
+    """Frames/s of the one-jit pipeline on the default backend (chained)."""
     from sks_tpu.data.images import planar_sequence
 
     key = jax.random.PRNGKey(0)
@@ -42,7 +42,6 @@ def measure_pipeline_fps(num_frames: int = 16, shape=(240, 320),
 
     config = RansacConfig(
         num_hypotheses=hypotheses, threshold=2.0, refine_iters=2,
-        fused=jax.default_backend() == "tpu",
     )
 
     @jax.jit
@@ -88,12 +87,11 @@ def measure_pipeline_fps(num_frames: int = 16, shape=(240, 320),
         "shape": list(shape),
         "num_corners": num_corners,
         "hypotheses_per_pair": hypotheses,
-        "backend": jax.default_backend(),
+        "platform": jax.devices()[0].platform,
         "device_kind": jax.devices()[0].device_kind,
         "sec_per_pipeline_invoke": sec_per_invoke,
         "pairs_per_sec_steady_state_frames_per_sec": pps,
         "frames_per_chunked_invoke_per_sec": num_frames / sec_per_invoke,
-        "fused_ransac": config.fused,
     }
 
 
@@ -106,7 +104,7 @@ def measure_capstone_fps(num_frames: int = 16, shape=(240, 320),
     Unlike :func:`measure_pipeline_fps` (odometry chain only), this times
     the one-call system a production caller invokes: consecutive AND
     closure-candidate matching/fitting, metric chaining, and pose-graph
-    relaxation, all in one jit (VERDICT r3 item 4).
+    relaxation, all in one jit.
     """
     from sks_tpu.data.images import planar_sequence
     from sks_tpu.slam.odometry import closure_candidates
@@ -121,7 +119,6 @@ def measure_capstone_fps(num_frames: int = 16, shape=(240, 320),
 
     config = RansacConfig(
         num_hypotheses=hypotheses, threshold=2.0, refine_iters=2,
-        fused=jax.default_backend() == "tpu",
     )
     n_closures = len(closure_candidates(num_frames, strides))
     total_pairs = (num_frames - 1) + n_closures
@@ -160,12 +157,11 @@ def measure_capstone_fps(num_frames: int = 16, shape=(240, 320),
         "num_corners": num_corners,
         "hypotheses_per_pair": hypotheses,
         "strides": list(strides),
-        "backend": jax.default_backend(),
+        "platform": jax.devices()[0].platform,
         "device_kind": jax.devices()[0].device_kind,
         "sec_per_capstone_invoke": sec_per_invoke,
         "pairs_per_sec": total_pairs / sec_per_invoke,
         "frames_per_chunked_invoke_per_sec": num_frames / sec_per_invoke,
-        "fused_ransac": config.fused,
     }
 
 
@@ -198,7 +194,7 @@ def measure_all(num_frames: int = 16, shape=(240, 320),
         "shape": [480, 640],
         "pairs_per_sec": vga["pairs_per_sec_steady_state_frames_per_sec"],
         "sec_per_pipeline_invoke": vga["sec_per_pipeline_invoke"],
-        "note": "same config at VGA resolution (VERDICT r4 item 8c)",
+        "note": "same config at VGA resolution",
     }
     res["note"] = (
         "hoist-proof chained methodology (sub-roundoff frame nudge per "

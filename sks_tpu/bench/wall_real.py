@@ -2,7 +2,7 @@
 
 Every accuracy claim so far rests on rendered/synthetic scenes; the
 reference's own harnesses run on 2,540 real SIFT matches of a real wall
-(``orig_pts_wall.txt``).  This benchmark grounds the TPU stack in that
+(``orig_pts_wall.txt``).  This benchmark grounds the stack in that
 exact data, read-only at runtime (``data/wall.py`` — nothing copied):
 
 1. **Solver accuracy on real quads** — the reference-shaped resampling
@@ -12,12 +12,7 @@ exact data, read-only at runtime (``data/wall.py`` — nothing copied):
    real coordinate distribution) at f32 and df64, cross-checked against
    CPU f64.
 
-2. **Throughput on real data** — the chained Pallas ACA at B=1M built from
-   real resampled quads: same kernel, real inputs (TPU compute is
-   data-independent; this pins that the headline number is not an artifact
-   of synthetic input ranges).
-
-3. **Robust fit parity** — ``find_homography`` (+ final polish) vs
+2. **Robust fit parity** — ``find_homography`` (+ final polish) vs
    ``cv2.findHomography`` on the full 2,540 real matches: inlier counts
    under cv2's own forward rule, inlier-set Jaccard, and corner-transfer
    stability between the two models.  The wall is a real 3-D scene
@@ -67,7 +62,7 @@ def solver_accuracy(src, tar, batch: int = 4096, seed: int = 11) -> dict:
             "f32_p99_px": float(np.nanpercentile(r, 99)),
             "finite_frac": float(np.mean(np.isfinite(r))),
         }
-    # df64 twins, all six solvers: compensated f32 pairs on TPU.
+    # df64 twins, all six solvers: compensated f32 pairs.
     from sks_tpu.ops.df64 import (
         aca_df64_h,
         ge_df64_h,
@@ -81,7 +76,7 @@ def solver_accuracy(src, tar, batch: int = 4096, seed: int = 11) -> dict:
                      ("ndlt", ndlt_df64_h), ("rho_ge", ge_df64_h),
                      ("gpt_lu", gpt_df64_h), ("ho", ho_df64_h)):
         hi, lo = jax.jit(fn)(s32, t32)
-        # Recombine hi+lo in HOST f64 (TPU has no f64) and normalize there.
+        # Recombine hi+lo in host f64 and normalize there.
         h = np.asarray(hi, np.float64) + np.asarray(lo, np.float64)
         h = h / h[..., 2:3, 2:3]
         proj = np.concatenate([sq, np.ones_like(sq[..., :1])], -1) @ np.swapaxes(h, -1, -2)
@@ -91,23 +86,6 @@ def solver_accuracy(src, tar, batch: int = 4096, seed: int = 11) -> dict:
         out[name]["df64_median_px"] = float(np.nanmedian(r))
         out[name]["df64_p99_px"] = float(np.nanpercentile(r, 99))
     return out
-
-
-def throughput_real(src, tar, batch: int = 1 << 20) -> dict | None:
-    """Chained Pallas ACA H/s on REAL resampled quads (TPU only)."""
-    if jax.default_backend() != "tpu":
-        return None
-    from sks_tpu.bench.chained import aca_pallas_chained, chained_step_seconds
-
-    sq, tq = resample_quads(src, tar, batch)
-    m = batch // 128
-    s = jnp.asarray(sq.reshape(batch, 8).T.reshape(8, m, 128), jnp.float32)
-    t = jnp.asarray(tq.reshape(batch, 8).T.reshape(8, m, 128), jnp.float32)
-    jax.block_until_ready((s, t))
-    sec = chained_step_seconds(aca_pallas_chained, s, t, k1=200, k2=1000)
-    return {"batch": batch, "h_per_s": batch / sec,
-            "note": "chained Pallas ACA on real resampled wall quads "
-                    "(VMEM-resident regime)"}
 
 
 def robust_parity(src, tar, threshold: float = 3.0, seed: int = 0) -> dict:
@@ -174,13 +152,11 @@ def run(out_path: str | None = None, batch: int = 4096) -> dict | None:
     result = {
         "source": "reference orig_pts_wall.txt (read-only at runtime)",
         "n_matches": int(src.shape[0]),
-        "backend": jax.default_backend(),
+        "platform": jax.devices()[0].platform,
+        "device_kind": jax.devices()[0].device_kind,
         "solver_accuracy_on_real_quads": solver_accuracy(src, tar, batch),
         "robust_parity_full_set": robust_parity(src, tar),
     }
-    tp = throughput_real(src, tar)
-    if tp:
-        result["throughput_real_quads"] = tp
     print(json.dumps(result, indent=1))
     if out_path:
         with open(out_path, "w") as f:
@@ -202,7 +178,7 @@ def to_markdown(res: dict) -> str:
         "(closes SURVEY C4)",
         "",
         f"2,540 real SIFT correspondences (`orig_pts_wall.txt`, read-only "
-        f"at runtime — nothing copied), backend: {res['backend']}.",
+        f"at runtime — nothing copied), device: {res['device_kind']}.",
         "",
         "## Solver accuracy on reference-shaped resampled real quads",
         "",
@@ -223,8 +199,7 @@ def to_markdown(res: dict) -> str:
         "The df64 rows bottom out at ~6e-5 px *identically* across solvers: "
         "that is the f32 INPUT quantization of the real f64 coordinates "
         "(2^-23 x ~640 px = 7.6e-5), not solver error — the df64 "
-        "arithmetic is exact relative to its inputs (7e-11 px on exact-f32 "
-        "synthetic quads, DF64_TABLE8.json).",
+        "arithmetic is exact relative to its inputs.",
     ]
     lines += [
         "",
@@ -236,17 +211,6 @@ def to_markdown(res: dict) -> str:
         f"- corner-transfer disagreement over the data bounding box: "
         f"**{rp.get('corner_transfer_disagreement_px', 0):.2f} px**",
     ]
-    tp = res.get("throughput_real_quads")
-    if tp:
-        lines += [
-            "",
-            "## Throughput on real resampled quads",
-            "",
-            f"Chained Pallas ACA at B={tp['batch']:,}: "
-            f"**{tp['h_per_s']:.3e} H/s** — matching the synthetic headline "
-            "(TPU compute is input-independent; this pins that the Table-8 "
-            "numbers are not an artifact of synthetic input ranges).",
-        ]
     return "\n".join(lines)
 
 

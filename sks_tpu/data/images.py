@@ -316,8 +316,8 @@ def planar_pair_boxes(key: Array, shape: tuple = (480, 640),
     """A planar pair with off-plane structure: the parallax protocol.
 
     Like :func:`planar_pair`, plus ``num_boxes`` textured rectangles floating
-    in planes CLOSER to the camera than the main plane (VERDICT r3 item 5 —
-    the reference's wall fixture is a real 3-D scene whose off-plane matches
+    in planes CLOSER to the camera than the main plane (the
+    reference's wall fixture is a real 3-D scene whose off-plane matches
     are *in* the data, ``orig_pts_wall.txt``).  Matches on a box surface are
     consistent with that box's own plane-induced homography, NOT the main
     plane's — *structured* outliers that form coherent alternative models,

@@ -7,8 +7,8 @@ reference harnesses (``main.cpp:21-30`` samples 4-point subsets from it;
 ``GPU_Runtime Test.cu:52-78`` resamples it into SoA batches).  Nothing is
 copied into this repository: the file is read from the reference checkout
 (or ``SKS_WALL_POINTS``) at runtime, and every consumer skips cleanly when
-it is absent (VERDICT r4 item 2 — grounding the stack in the exact data the
-paper used, while keeping the repo's no-copy stance).
+it is absent (grounding the stack in the exact data the paper used, while
+keeping the repo's no-copy stance).
 
 Format: count header, then ``x1 y1 x2 y2`` per line — the same format
 :func:`sks_tpu.data.fixture.load_correspondences` and the native

@@ -1,9 +1,9 @@
 """On-device feature pipeline: detect -> describe -> match (all jit, fixed-K).
 
 Replaces the host-side OpenCV feature pipeline the reference benchmarks assume
-(its wall fixture is SIFT-style matches) with TPU-resident ops: Harris
-corners via convolutions, normalized patch descriptors via bilinear gathers,
-and mutual-nearest matching on an MXU distance matrix.
+(its wall fixture is SIFT-style matches) with device-resident ops: Harris
+corners via shifted adds, normalized patch descriptors via bilinear sampling,
+and mutual-nearest matching on a matmul distance matrix.
 """
 
 from sks_tpu.features.harris import harris_response, detect_corners  # noqa: F401

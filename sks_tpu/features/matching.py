@@ -1,4 +1,4 @@
-"""Descriptor matching on the MXU: distance matrix + mutual NN + ratio test."""
+"""Descriptor matching as a matmul: distance matrix + mutual NN + ratio test."""
 
 from __future__ import annotations
 
@@ -36,7 +36,7 @@ def match_descriptors(
     Returns:
       (idx2 (K1,) int32 — match of each d1 in d2, valid (K1,) bool).
     """
-    # Squared L2 on unit vectors: 2 - 2 a.b — one MXU matmul.
+    # Squared L2 on unit vectors: 2 - 2 a.b — one matmul.
     sim = d1 @ d2.T  # (K1, K2)
     if valid2 is not None:
         sim = jnp.where(valid2[None, :], sim, -jnp.inf)

@@ -26,14 +26,14 @@ _EPS = 1e-8
 
 
 def mm_small(a: Array, b: Array) -> Array:
-    """Batched small-matrix product as broadcast multiply-add (VPU path).
+    """Batched small-matrix product as broadcast multiply-add (elementwise).
 
-    For 3x3/4x4 geometry products the MXU is the wrong unit: XLA pads tiny
-    matmuls onto 128x128 tiles, and the package's full-f32 accumulation
-    default makes each one multi-pass (measured: the pose-graph CG loop got
-    2.6x slower through `@`).  The broadcasting sum runs the identical
-    product on the VPU in exact f32 — faster at these sizes, and immune to
-    matmul-precision defaults entirely.
+    For 3x3/4x4 geometry products a matmul is the wrong tool: each tiny
+    product is a separate library call or padded tile, and the package's
+    full-f32 accumulation default makes it multi-pass (measured: the
+    pose-graph CG loop got 2.6x slower through `@`).  The broadcasting sum
+    runs the identical product elementwise in exact f32 — it fuses with its
+    neighbours, and is immune to matmul-precision defaults entirely.
     """
     return jnp.sum(a[..., :, :, None] * b[..., None, :, :], axis=-2)
 

@@ -4,7 +4,7 @@ The reference carries ``TensorDLT_2`` (torchgeometry's
 ``get_perspective_transform``) explicitly because the Iterative Homography
 Network uses it as the inner solver of a recurrent estimate-warp-correct loop
 (``PyTorch Codes/Modules_Runtime_Test.py:81-101`` attribution).  This module
-provides that model family TPU-natively:
+provides that model family as one fixed-shape JAX program:
 
   encode both images once -> loop (static trip count, shared weights):
     H_k = aca_rect(corners + offsets_k)          # ~50-flop closed-form head
@@ -12,13 +12,13 @@ provides that model family TPU-natively:
     delta_k = CNN(f1, f2_warped, f2_warped - f1) # correction
     offsets_{k+1} = offsets_k + delta_k
 
-Design notes (TPU-first):
+Design notes:
   * The warp samples f2 *at* H(grid) — the forward map — so no 3x3 inverse is
     ever formed; together with the division-free ACA-rect head the whole loop
     body is gathers + convs + straight-line FP.
   * The iteration count is static and the weights are shared, so the loop is
     unrolled into one jit region (no data-dependent control flow); all conv
-    work is MXU-shaped NHWC.
+    work is NHWC.
   * Training uses the RAFT/IHN exponentially-weighted sequence loss over the
     per-iteration estimates.
 """
@@ -50,14 +50,12 @@ __all__ = [
 def warp_by_homography(img: Array, h: Array, sampler: str = "auto") -> Array:
     """Sample ``img`` at H(grid): out(x) = img(H x), bilinear, edge-clamped.
 
-    ``sampler='matmul'`` (auto on TPU) runs the interpolation as one-hot
-    row-weight matmuls over the channel-concatenated feature map — the
-    transformation that fixed the descriptor stage and the ESM tracker.
-    This was the IHN training-throughput defect (VERDICT r4 weak #1): the
-    gather form issues B*C*S^2 irregular loads per warp (and scatter-adds
-    in the backward pass), which the TPU serializes — measured 0.5 s/step
-    vs the CNN's 14 ms on the same data.  The matmul form is dense MXU
-    work in both directions (the VJP of a matmul is a matmul).
+    ``sampler='gather'`` (also what ``'auto'`` means) gathers; its backward
+    pass scatter-adds.  ``sampler='matmul'`` runs the interpolation as
+    one-hot row-weight matmuls over the channel-concatenated feature map,
+    dense work in both directions (the VJP of a matmul is a matmul) — the
+    better arm only where gathers serialize.  Gathers won both sampling
+    sites measured on the H100 (descriptors, ESM polish; PERF.md).
 
     Args:
       img: (B, S, S, C) feature/image stack.
@@ -71,9 +69,7 @@ def warp_by_homography(img: Array, h: Array, sampler: str = "auto") -> Array:
     gy, gx = jnp.meshgrid(xs, xs, indexing="ij")
     grid = jnp.stack([gx, gy], axis=-1).reshape(-1, 2)  # (S*S, 2) as (x, y)
     pts = apply_homography(h, grid)  # (B, S*S, 2)
-    if sampler == "matmul" or (
-        sampler == "auto" and jax.default_backend() == "tpu"
-    ):
+    if sampler == "matmul":
         def one(im, p):
             dt = im.dtype
             wy = _bilinear_weights(p[:, 1], s, dt)  # (S^2, S)

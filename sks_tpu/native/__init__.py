@@ -2,7 +2,7 @@
 
 Auto-builds the library with ``make`` on first use if missing (g++ only, no
 external deps).  Provides: fp32/fp64 scalar-batch solvers for all six kernels (the fp64
-oracle — TPU has no native f64), the reference-format correspondence reader,
+oracle), the reference-format correspondence reader,
 and the reference-comparable hot-loop CPU benchmark (BASELINE.md Table 5).
 """
 
@@ -60,10 +60,12 @@ def _load():
 
 
 def available() -> bool:
+    """Whether the library builds and loads (the oracle's callers that must
+    not run without it call the solvers directly, which raise)."""
     try:
         _load()
         return True
-    except Exception:
+    except (OSError, AttributeError, subprocess.CalledProcessError):
         return False
 
 

@@ -4,9 +4,9 @@ Capability parity with the reference scalar kernels ``sks::runKernel_ACA{,_doubl
 (``C++ Codes/modules/ACA_SKS.cpp:24-179``) and the batched CUDA/PyTorch twins
 (``GPU_Runtime Test.cu:81-151``, ``Modules_Runtime_Test.py:312-388``), but derived
 independently from the decomposition itself and written once, batched and
-dtype-polymorphic, the TPU way.  The straight-line component form
-(:func:`aca_core`) is the single source of truth shared by the jnp op and the
-Pallas kernel (``sks_tpu.kernels.aca_pallas``).
+dtype-polymorphic.  The straight-line component form (:func:`aca_core`) is
+the single source of truth shared by the jnp op and the double-word
+(df64) solver.
 
 Math (re-derivation)
 --------------------
@@ -60,8 +60,8 @@ def aca_core(
 ):
     """Straight-line division-free ACA on scalar-like components.
 
-    Works on any broadcastable array components (jnp arrays, Pallas vector
-    tiles).  Returns the 9 homography entries row-major, up to scale.
+    Works on any broadcastable array components (AoS slices or SoA rows).
+    Returns the 9 homography entries row-major, up to scale.
     """
     # Source affine frame: axes E1 = N1-M1, F1 = P1-M1; adj(A1) @ (Q1-M1).
     e1x = n1x - m1x

@@ -1,10 +1,10 @@
-"""Double-float ("df64") arithmetic: fp64-parity accuracy on fp32-only TPUs.
+"""Double-float ("df64") arithmetic: fp64-parity accuracy from fp32 arithmetic.
 
 The reference ships fp64 twins of every solver (``sks::runKernel_ACA_double``,
 ``ACA_SKS.cpp:104-179``; CUDA kernels are fp64 throughout,
 ``GPU_Runtime Test.cu:81-151``) because RANSAC pipelines care about solver
-accuracy.  TPUs have no fast native fp64, so this module supplies the standard
-alternative: *double-word* (a.k.a. double-float / df64) arithmetic, an unevaluated
+accuracy.  For devices without fast native fp64 this module supplies the
+standard alternative: *double-word* (a.k.a. double-float / df64) arithmetic, an unevaluated
 sum ``hi + lo`` of two fp32 values carrying ~49 bits of significand — enough to
 match fp64 parity configs (``BASELINE.json`` config 1) on the 85-flop ACA chain.
 
@@ -324,17 +324,16 @@ def df_sqrt(x: DF) -> DF:
 
 
 def jacobi_smallest_col_df_unrolled(a, sweeps: int = 8):
-    """Static-pair unrolled DF Jacobi — the Pallas-kernel form.
+    """Static-pair unrolled DF Jacobi — the straight-line SoA form.
 
     :func:`jacobi_smallest_col_df` scans one rotation body over a
     (sweeps*36, 2) index schedule, which keeps the XLA graph small but
-    needs dynamic row/column gathers — Mosaic rejects the captured
-    schedule constant and the traced-index loads.  This twin mirrors
+    needs dynamic row/column gathers.  This twin mirrors
     :func:`sks_tpu.ops.linalg.jacobi_smallest_col_core` instead: every
     (p, q) rotation is unrolled at trace time over static indices, the
     sweep loop is a ``fori_loop`` whose carry is the flattened (hi, lo)
     component tuple, and every op is elementwise DF arithmetic — exactly
-    what a VMEM tile kernel wants.  Same math, same results to df64
+    what a component-major (SoA) batch wants.  Same math, same results to df64
     rounding.
     """
     n = len(a)
@@ -514,8 +513,7 @@ def invit_smallest_col_df(a, seed, shift_rel: float = 2.0 ** -40,
     ``shift_rel`` (lossless in fp32) so hi words stay in range despite the
     ~1/eps per-solve growth.
 
-    Fully static/unrolled (no gathers, no scan): lowers under both XLA and
-    Mosaic, so the Pallas df64 NDLT kernel uses it directly.
+    Fully static/unrolled (no gathers, no scan).
 
     Args:
       a: n x n list-of-lists of :class:`DF` components (symmetric PSD).
@@ -569,13 +567,13 @@ def invit_smallest_col_df(a, seed, shift_rel: float = 2.0 ** -40,
 
 def ndlt_df64_h(src: Array, tar: Array, sweeps: int = 8,
                 df_eig: str = "invit") -> DF:
-    """Minimal-set (N=4) NDLT in df64: fp64-grade on fp32-only TPUs.
+    """Minimal-set (N=4) NDLT in df64: fp64-grade from fp32 arithmetic.
 
     Runs the identical block-structured chain as
     :func:`sks_tpu.ops.ndlt.ndlt_core` — Hartley normalization, the 24
     weighted p p^T sums, the 9x9 smallest-eigenvector solve — entirely in
     double-word arithmetic.  This is the refine-grade NDLT that lets fp32
-    TPUs match the reference's fp64 normal-matrix solve (``DLT.cpp:53-119``);
+    arithmetic match the reference's fp64 normal-matrix solve (``DLT.cpp:53-119``);
     the f32 path is conditioning-limited at raw pixel scale (measured:
     ~1e3 px median on wall-fixture minimal sets vs ~0.4 px for this).
 

@@ -10,8 +10,7 @@ zero-block structure is exploited by eliminating the two 4x4 diagonal blocks
 independently before coupling through the last two columns.
 
 The straight-line component form (:func:`ge_core`) is the single source shared
-by the jnp op and the SoA Pallas kernel (``sks_tpu.kernels.baselines_pallas``),
-mirroring ``aca_core``.
+by the jnp op and the double-word (df64) solver, mirroring ``aca_core``.
 
 Structure used: with rows ordered [x-constraints; y-constraints],
 
@@ -38,8 +37,8 @@ def ge_core(
 ):
     """Straight-line RHO-GE on scalar-like components (flat point order).
 
-    Works on any broadcastable array components (jnp arrays, Pallas vector
-    tiles).  Returns the 9 homography entries row-major with ``H[2,2] == 1``
+    Works on any broadcastable array components (AoS slices or SoA rows).
+    Returns the 9 homography entries row-major with ``H[2,2] == 1``
     by construction (no pivoting: fixed-pivot degeneracies yield non-finite
     entries, as in the reference).
     """

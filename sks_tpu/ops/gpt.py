@@ -24,10 +24,10 @@ def gpt_core(
 ):
     """Straight-line pivoted 8x8 Gauss-Jordan on scalar-like components.
 
-    The single-source twin of :func:`gpt_lu` for SoA layouts (Pallas tiles or
-    component-major jnp arrays): the 8x9 tableau lives as a Python list of
+    The single-source twin of :func:`gpt_lu` for SoA layouts
+    (component-major jnp arrays): the 8x9 tableau lives as a Python list of
     component arrays, the elimination order is static, and partial pivoting is
-    a branch-free bubble pass (per-lane row swaps via ``where``) — the TPU
+    a branch-free bubble pass (per-lane row swaps via ``where``) — the batched
     answer to the reference's per-thread ``find_pivot``/``eliminate`` LU
     (``GPU_Runtime Test.cu:242-357``).
 

@@ -9,7 +9,7 @@ least-squares in two independent 3-unknown blocks), leaving a 2N x 3 system in
 here in *closed form* (trigonometric 3x3 eigensolver) instead of the
 reference's iterative device SVD.
 
-Derivation used here (equivalent, TPU-friendly form): with normalized points
+Derivation used here (equivalent, branch-free batched form): with normalized points
 ``(x,y) -> (X,Y)``, design matrix ``C = [x y 1]`` (N x 3) and ``g = (h7,h8,h9)``,
 the DLT constraints read ``C u = diag(X) C g`` and ``C v = diag(Y) C g`` for
 ``u = (h1,h2,h3)``, ``v = (h4,h5,h6)``.  Least-squares elimination of u, v gives
@@ -42,7 +42,7 @@ def ho_core(
 ):
     """Straight-line minimal-set (N=4) Harker-O'Leary on components.
 
-    Single source for SoA layouts (Pallas tiles / component-major arrays):
+    Single source for SoA layouts (component-major arrays):
     isotropic normalization, closed-form elimination of (h1..h6), smallest
     3x3 eigenvector for (h7,h8,h9), back-substitution, denormalization — the
     same math as :func:`ho_h` specialized to 4 unweighted points, fully
@@ -50,8 +50,7 @@ def ho_core(
     to scale.
 
     ``eig_method``: 'closed3' (trigonometric closed form, default) or
-    'jacobi' (fixed-sweep component Jacobi — no arccos/cos, which Mosaic
-    cannot lower; the Pallas kernel uses this).  DF (double-word)
+    'jacobi' (fixed-sweep component Jacobi — no arccos/cos).  DF (double-word)
     components run the identical chain in df64 with the eigenproblem
     solved by LDL^T inverse iteration (:func:`sks_tpu.ops.df64.
     invit_smallest_col_df`; the public entry is ``ops/df64.ho_df64_h``).

@@ -1,6 +1,6 @@
 """Batched small-matrix linear algebra for the solver baselines.
 
-TPU-first replacements for the reference's per-thread numerics: the CUDA device
+Batched, branch-free replacements for the reference's per-thread numerics: the CUDA device
 Golub-Reinsch SVD (``GPU_Runtime Test.cu:527-785``) is branch-heavy,
 data-dependent (implicit-shift QR with convergence tests) and hostile to a SIMD
 machine; here the same capability is provided by
@@ -9,7 +9,7 @@ machine; here the same capability is provided by
     (branch-free, unrolled, vectorizes over the batch), and
   * a closed-form smallest-eigenvector for the 3x3 symmetric case,
   * an unrolled no-pivot Gauss-Jordan solve for small dense systems
-    (the TPU analogue of the CUDA 8x8 LU at ``GPU_Runtime Test.cu:242-357``).
+    (the batched analogue of the CUDA 8x8 LU at ``GPU_Runtime Test.cu:242-357``).
 
 All functions broadcast over leading batch dimensions and preserve dtype.
 """
@@ -31,9 +31,9 @@ __all__ = [
 
 
 def mm_highest(a: Array, b: Array) -> Array:
-    """f32-accurate matmul: TPU's default matmul precision truncates inputs
-    to bf16 on the MXU, which costs ~3 px of reprojection error through the
-    normalization/denormalization chains of the N>=4 solvers.  Every small
+    """f32-accurate matmul: a reduced default matmul precision (TF32 on a
+    GPU, bf16 passes elsewhere) costs pixels of reprojection error through
+    the normalization/denormalization chains of the N>=4 solvers.  Every small
     geometry contraction in this package goes through this (or an einsum with
     ``precision='highest'``)."""
     return jnp.matmul(a, b, precision="highest")
@@ -124,7 +124,7 @@ def _smallest_eigvec_3x3(a: Array) -> Array:
     p = jnp.sqrt(jnp.maximum(p2, jnp.finfo(dtype).tiny))
     bn = b / p[..., None, None]
     # Explicit 3x3 determinant (jnp.linalg.det lowers through dot_general,
-    # which truncates to bf16 under TPU's default matmul precision).
+    # which runs in reduced precision under a TF32/bf16 matmul default).
     detb = (
         bn[..., 0, 0] * (bn[..., 1, 1] * bn[..., 2, 2]
                          - bn[..., 1, 2] * bn[..., 2, 1])
@@ -204,8 +204,8 @@ def smallest_eigvec_sym(a: Array, method: str = "auto") -> Array:
 def jacobi_smallest_col_core(a, sweeps: int = 8):
     """Smallest eigenvector of a symmetric matrix given as component lists.
 
-    The lane-parallel twin of :func:`jacobi_eigh` for SoA layouts (Pallas
-    vector tiles or component-major jnp arrays): ``a`` is an n x n Python
+    The lane-parallel twin of :func:`jacobi_eigh` for SoA layouts
+    (component-major jnp arrays): ``a`` is an n x n Python
     list-of-lists of broadcastable array components, every rotation is
     unrolled over the static (p, q) pairs, and the sweep loop is a
     ``fori_loop`` whose carry is the flattened component tuple.  Each lane of
@@ -290,8 +290,7 @@ def invit_smallest_col_core(a, seed=None, shift_rel: float = 2.0 ** -22,
     for RANSAC hypothesis generation, which is what the minimal path
     serves.  f32's headroom is thinner than df64's (only ~2^2 between the
     shift and u*cond for bad quads), hence 3 solves/3 sweeps vs df64's
-    2/3.  Fully unrolled — lowers under Mosaic; the Pallas f32 NDLT
-    kernel uses it.
+    2/3.  Fully unrolled.
 
     Args:
       a: n x n list-of-lists of broadcastable array components (PSD).
@@ -426,7 +425,7 @@ def smallest_eigvec3_core(a00, a01, a02, a11, a12, a22):
 def solve_unrolled(a: Array, b: Array, pivot: bool = False) -> Array:
     """Solve small dense systems by statically unrolled Gauss-Jordan.
 
-    The TPU analogue of the reference's per-thread 8x8 LU
+    The batched analogue of the reference's per-thread 8x8 LU
     (``GPU_Runtime Test.cu:242-357``): the elimination order is static, fully
     unrolled at trace time, and vectorizes over the batch; with
     ``pivot=True`` each step does a branch-free argmax row swap

@@ -3,7 +3,7 @@
 Capability parity with ``cv::runKernel_DLT`` (``C++ Codes/modules/DLT.cpp:53-119``)
 and the CUDA twin (``GPU_Runtime Test.cu:1034-1160``): Hartley-normalize both
 point sets, accumulate the 9x9 normal matrix of the stacked DLT constraints,
-take the smallest eigenvector, denormalize.  TPU-first differences: batched over
+take the smallest eigenvector, denormalize.  Differences: batched over
 arbitrary leading dims, optional per-point weights (so padded fixed-shape point
 sets and IRLS reweighting work under jit), and a branch-free fixed-sweep Jacobi
 eigensolver instead of the reference's branchy Golub-Reinsch device SVD.
@@ -34,7 +34,7 @@ def ndlt_core(
 ):
     """Straight-line minimal-set (N=4) NDLT on components.
 
-    Single source for SoA layouts (Pallas tiles / component-major arrays).
+    Single source for SoA layouts (component-major arrays).
     Exploits the DLT normal matrix's block structure: with per-point
     ``p = (x, y, 1)`` and constraint rows ``[p, 0, -X'p]``, ``[0, p, -Y'p]``,
 
@@ -138,8 +138,6 @@ def ndlt_core(
             # few f32 Jacobi sweeps on the hi words: same direction accuracy
             # as the converged df64 Jacobi at ~1/40 the df64 ops (measured
             # equal on random + wall-scale quads; see tests/test_df64.py).
-            # Fully unrolled — lowers under Mosaic, so the Pallas df64 NDLT
-            # kernel takes this path too.
             from sks_tpu.ops.df64 import df_lift, invit_smallest_col_df
 
             ltl_hi = [[e.hi for e in row] for row in ltl]
@@ -147,8 +145,8 @@ def ndlt_core(
                     for s in jacobi_smallest_col_core(ltl_hi, sweeps=3)]
             h = invit_smallest_col_df(ltl, seed)
         elif jacobi_unroll:
-            # Pallas-kernel form: static-pair unrolled rotations (Mosaic
-            # rejects the scan form's index schedule + dynamic gathers).
+            # Static-pair unrolled rotations (no scan index schedule, no
+            # dynamic gathers).
             from sks_tpu.ops.df64 import jacobi_smallest_col_df_unrolled
 
             h = jacobi_smallest_col_df_unrolled(ltl, sweeps=sweeps)

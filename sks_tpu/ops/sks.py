@@ -62,7 +62,7 @@ def sks_core(
     m1x, m1y, n1x, n1y, p1x, p1y, q1x, q1y,
     m2x, m2y, n2x, n2y, p2x, p2y, q2x, q2y,
 ):
-    """Straight-line SKS on scalar-like components (shared by jnp and Pallas).
+    """Straight-line SKS on scalar-like components (shared by AoS and SoA).
 
     Returns the 9 homography entries row-major, up to scale.  Contains the
     algorithm's intrinsic reciprocals (similarity normalization, kernel solve)

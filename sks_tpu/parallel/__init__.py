@@ -2,7 +2,7 @@
 
 The reference is single-device (SURVEY.md §2.6) — this layer is new, idiomatic
 JAX: hypotheses shard across chips (data-parallel axis), points/maps shard for
-the SfM layers, consensus and Schur reductions ride ICI collectives.
+the SfM layers, consensus and Schur reductions are XLA collectives.
 """
 
 from sks_tpu.parallel.mesh import make_mesh  # noqa: F401

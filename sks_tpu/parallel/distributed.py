@@ -1,15 +1,16 @@
-"""Multi-host (multi-process) execution: DCN-aware meshes + replication.
+"""Multi-host (multi-process) execution: host-aware meshes + replication.
 
 The reference has no distributed layer at all (SURVEY.md §2.6); this is the
 idiomatic-JAX design for running the hypothesis-sharded RANSAC and sharded BA
-across *hosts*: ``jax.distributed`` brings every process's devices into one
-global device set, the mesh lays a ``host`` (DCN) axis outermost so that the
-hypothesis axis rides ICI within a slice and only the tiny consensus
-reduction (top-K models, ~K*9 floats) crosses DCN, and inputs are replicated
-as global arrays so the existing ``shard_map`` code runs unchanged.
+across *processes*: ``jax.distributed`` brings every process's devices into
+one global device set, the mesh lays a ``host`` axis outermost so that the
+hypothesis axis spans each process's local devices and only the tiny
+consensus reduction (top-K models, ~K*9 floats) crosses processes, and inputs
+are replicated as global arrays so the existing ``shard_map`` code runs
+unchanged.
 
 Tested hermetically in CI with 2 CPU-backend processes
-(``tests/test_multihost.py``) — no TPU pod needed to exercise the code path.
+(``tests/test_multihost.py``).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ def initialize_multihost(
     """Join (or start) a multi-process JAX cluster.
 
     Thin, idempotent wrapper over :func:`jax.distributed.initialize`: with no
-    arguments it relies on the cluster environment (TPU pod metadata, or the
+    arguments it relies on the cluster environment (the
     ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``
     variables); explicit arguments are for bespoke launchers and the CI
     harness.  Safe to call once per process, before any other jax API.
@@ -68,12 +69,12 @@ def is_multiprocess() -> bool:
     return jax.process_count() > 1
 
 
-def global_mesh(ici_axes: dict[str, int] | None = None,
+def global_mesh(local_axes: dict[str, int] | None = None,
                 host_axis: str = "host") -> Mesh:
-    """A mesh over ALL processes' devices, DCN axis outermost.
+    """A mesh over ALL processes' devices, the process axis outermost.
 
-    The leading ``host`` axis has one slot per process (DCN boundary);
-    ``ici_axes`` lay out each process's local devices (ICI within a slice).
+    The leading ``host`` axis has one slot per process; ``local_axes`` lay
+    out each process's local devices.
     With one process this degenerates to :func:`sks_tpu.parallel.make_mesh`
     semantics plus a size-1 host axis, so code can be written once against
     the multi-host layout.
@@ -84,11 +85,11 @@ def global_mesh(ici_axes: dict[str, int] | None = None,
     n_proc = jax.process_count()
     devs = jax.devices()  # globally ordered: process-major
     per_proc = len(devs) // n_proc
-    if ici_axes is None:
-        ici_axes = {"hyp": per_proc}
-    names = (host_axis, *ici_axes)
+    if local_axes is None:
+        local_axes = {"hyp": per_proc}
+    names = (host_axis, *local_axes)
     sizes = [n_proc]
-    rest = list(ici_axes.values())
+    rest = list(local_axes.values())
     unknown = [i for i, s in enumerate(rest) if s == -1]
     known = int(np.prod([s for s in rest if s != -1]))
     if unknown:

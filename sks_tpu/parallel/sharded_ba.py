@@ -8,7 +8,7 @@ the Schur system
 
 is a sum over landmarks, so the landmark axis shards across the mesh: each
 device linearizes only its landmark shard (Jacobians, C-blocks, partial S),
-one ``psum`` assembles the global camera system (a few hundred KB riding ICI),
+one ``psum`` assembles the global camera system (a few hundred KB),
 the replicated dense solve is tiny, and the landmark back-substitution is
 local to each shard.  Cameras are replicated (keyframe windows are small);
 landmark counts are the scaling axis, exactly like hypothesis counts in

@@ -11,7 +11,7 @@ quantity is a sum over *edges* —
 (pose graphs are small next to their edge sets once loop closures and
 covisibility edges pile up); each device evaluates residual/JVP/VJP only for
 its edge shard, and one ``psum`` of a (K, 6) vector per CG application rides
-ICI.  The gauge prior (``fix_first``) is edge-independent and is added
+the interconnect.  The gauge prior (``fix_first``) is edge-independent and is added
 analytically *after* the psum so it is counted exactly once.
 
 Numerically identical to ``slam.posegraph.optimize_posegraph`` (the psum is

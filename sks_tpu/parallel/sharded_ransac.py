@@ -3,8 +3,8 @@
 Hypotheses are embarrassingly parallel (the scaling axis the reference pushes
 to B=1M on one GPU, SURVEY.md §5 "long-context" analogue): each device draws
 and scores its own slice of the hypothesis budget against the (replicated,
-small) correspondence set; the consensus is a pmax + masked psum broadcast —
-two tiny ICI collectives.
+small) correspondence set; the consensus is an all-gather of each device's
+top-K models, a few hundred bytes.
 """
 
 from __future__ import annotations
@@ -36,7 +36,6 @@ def sharded_ransac_homography(
     tar: Array,
     config: RansacConfig = RansacConfig(),
     axis: str | tuple[str, ...] = "hyp",
-    fused: bool = False,
 ) -> RansacResult:
     """RANSAC with the hypothesis batch sharded across ``mesh[axis]``.
 
@@ -47,14 +46,8 @@ def sharded_ransac_homography(
 
     ``axis`` may be a tuple of mesh axis names — the multi-host layout
     (``parallel.distributed.global_mesh``) passes ``('host', 'hyp')`` so
-    hypotheses shard across the DCN *and* ICI axes; the only cross-host
-    traffic is the top-K consensus gather (~K x 9 floats).
-
-    ``fused=True`` runs the per-device solve+score through the Pallas fused
-    kernel (see :func:`sks_tpu.robust.ransac_homography_fused` for its
-    constraints: ACA, sum-style scoring, local batch % 128 == 0) — the
-    multi-chip production configuration: per-device hypotheses never leave
-    VMEM; only the consensus rides the interconnect.
+    hypotheses shard across hosts *and* their local devices; the only
+    cross-device traffic is the top-K consensus gather (~K x 9 floats).
 
     Returns a replicated RansacResult (identical on every device).
     """
@@ -66,11 +59,6 @@ def sharded_ransac_homography(
     b_local = config.num_hypotheses // n_dev
     n = src.shape[-2]
     solver = SOLVERS_H[config.solver]
-    if fused:
-        assert config.solver == "aca", "fused path supports solver='aca'"
-        assert config.scoring in ("inliers", "msac", "magsac"), config.scoring
-        assert b_local % 128 == 0, (b_local,)
-
     k_local = max(1, min(config.lo_candidates, b_local))
 
     def shard_fn(key, src, tar):
@@ -82,38 +70,19 @@ def sharded_ransac_homography(
         idx = sample_minimal_sets(k, n, b_local)
         s4 = jnp.take(src, idx, axis=0)
         t4 = jnp.take(tar, idx, axis=0)
-        if fused:
-            from sks_tpu.kernels.aca_pallas import aca_solve_score_soa, to_soa
-            from sks_tpu.robust.ransac import fused_kernel_threshold
-
-            pts = jnp.concatenate([src.T, tar.T], axis=0)
-            t2 = jnp.asarray(fused_kernel_threshold(config), src.dtype)
-            counts = aca_solve_score_soa(to_soa(s4), to_soa(t4), pts, t2,
-                                         scoring=config.scoring)
-            _, top = jax.lax.top_k(counts.reshape(-1), k_local)
-            s4k, t4k = s4[top], t4[top]
-            h_loc = solver(s4k, t4k)
-            h_loc = jnp.where(
-                aca_valid_mask(s4k, t4k)[..., None, None], h_loc, jnp.nan
-            )
-            sc_loc, _ = score_hypotheses(
-                h_loc, src, tar, config.threshold, None, config.scoring,
-                config.sigma_max,
-            )
-        else:
-            h = solver(s4, t4)
-            if config.solver == "aca":
-                valid = aca_valid_mask(s4, t4)
-                h = jnp.where(valid[..., None, None], h, jnp.nan)
-            elif config.solver == "sks":
-                valid = sks_valid_mask(s4, t4)
-                h = jnp.where(valid[..., None, None], h, jnp.nan)
-            scores, _ = score_hypotheses(
-                h, src, tar, config.threshold, None, config.scoring,
-                config.sigma_max,
-            )
-            sc_loc, top = jax.lax.top_k(scores, k_local)
-            h_loc = h[top]
+        h = solver(s4, t4)
+        if config.solver == "aca":
+            valid = aca_valid_mask(s4, t4)
+            h = jnp.where(valid[..., None, None], h, jnp.nan)
+        elif config.solver == "sks":
+            valid = sks_valid_mask(s4, t4)
+            h = jnp.where(valid[..., None, None], h, jnp.nan)
+        scores, _ = score_hypotheses(
+            h, src, tar, config.threshold, None, config.scoring,
+            config.sigma_max,
+        )
+        sc_loc, top = jax.lax.top_k(scores, k_local)
+        h_loc = h[top]
         # Local top-K stays sharded; the global reduction happens outside.
         return h_loc, sc_loc
 

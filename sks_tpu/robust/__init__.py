@@ -10,7 +10,6 @@ from sks_tpu.robust.ransac import (  # noqa: F401
     RansacResult,
     ransac_homography,
     ransac_homography_adaptive,
-    ransac_homography_fused,
     sample_minimal_sets,
     sample_minimal_sets_prosac,
     score_hypotheses,

@@ -26,7 +26,7 @@ __all__ = [
     "get_affine_transform",
 ]
 
-_METHODS = ("ransac", "msac", "magsac", "lmeds", "fused")
+_METHODS = ("ransac", "msac", "magsac", "lmeds")
 
 
 def find_homography(
@@ -41,7 +41,6 @@ def find_homography(
     confidence: float | None = None,
     sampling: str = "uniform",
     point_mask: Array | None = None,
-    bf16_hypotheses: bool = False,
 ):
     """Robustly fit H mapping src -> tar (the ``cv2.findHomography`` shape).
 
@@ -49,32 +48,24 @@ def find_homography(
       src, tar: (..., N, 2) matched points, N >= 4.  Leading batch dims are
         vmapped (one fit per batch element; same hypothesis budget each).
       method: 'ransac' (inlier counting), 'msac', 'magsac' (sigma-marginalized
-        scoring), 'lmeds' (threshold-free least-median), or 'fused' (force the
-        Pallas fused solve+score hot path).
+        scoring), or 'lmeds' (threshold-free least-median).
       ransac_reproj_threshold: inlier threshold in pixels (symmetric
         transfer error, like cv2's default semantic).
       max_iters: hypothesis budget.  Without ``confidence`` all hypotheses
-        are evaluated at once (fixed shape, no early exit to tune; rounded up
-        to a multiple of 128 on the fused path).  With ``confidence`` it is
-        the worst-case cap of the early-exit loop.
+        are evaluated at once (fixed shape, no early exit to tune).  With
+        ``confidence`` it is the worst-case cap of the early-exit loop.
       solver: minimal solver for hypotheses ('aca', 'sks', 'rho_ge', ...).
       key: PRNG key (default: PRNGKey(0) — deterministic).
       refine_iters: IRLS local-optimization rounds on the consensus set.
       confidence: if set (e.g. 0.995, the cv2 default semantic), run the
         early-exit loop (:func:`ransac_homography_adaptive`): geometrically
         growing chunks (256 -> 1024 -> 4096 -> ... capped at 2^17) until the
-        termination bound is met or ``max_iters`` total.  Runs XLA chunks by
-        default; ``method='fused'`` opts in the Pallas kernel for stages at
-        or above the measured crossover — worth ~1.3x at >=95% outlier
-        rates, but ~4x extra dispatch latency on easy fits
-        (bench_results/FUSED_ADAPTIVE.json).
+        termination bound is met or ``max_iters`` total.
       sampling: 'uniform', or 'prosac' progressive sampling (src/tar must be
-        sorted by descending match quality).  Composes with the fused path.
+        sorted by descending match quality).
       point_mask: optional (..., N) bool validity for padded fixed-shape
         match arrays — masked points never score or refine (every internal
         path supports this; now the cv2-shaped surface does too).
-      bf16_hypotheses: store minimal sets in bfloat16 on the fused path
-        (halves the dominant HBM stream; compute stays fp32).
 
     Returns:
       (H (..., 3, 3) jnp array normalized to H[..., 2, 2]=1,
@@ -87,31 +78,10 @@ def find_homography(
     src = jnp.asarray(src)
     tar = jnp.asarray(tar)
 
-    scoring = {"ransac": "inliers", "fused": "inliers"}.get(method, method)
-    # On TPU the fused Pallas kernel IS the production path for the
-    # fixed-batch fit: route eligible configurations through it automatically
-    # (identical semantics to the general path with solver='aca' — the top-K
-    # candidates are re-scored on the XLA path before selection).  The
-    # confidence early-exit loop stays XLA by default: its geometrically
-    # growing chunks DO reach the kernel-winning sizes at very high outlier
-    # rates (>=95%: fused-gated 112 ms vs XLA 145 ms, FUSED_ADAPTIVE.json),
-    # but a kernel-bearing executable costs ~4x more to dispatch on an easy
-    # fit that exits in one small chunk (98 vs 25 ms) — and easy fits
-    # dominate production.  method='fused' opts the adaptive loop in (still
-    # stage-gated: chunks below FUSED_ADAPTIVE_MIN_CHUNK always run XLA).
-    fused = method == "fused" or (
-        method in ("ransac", "msac", "magsac")
-        and solver == "aca"
-        and confidence is None
-        and jax.default_backend() == "tpu"
-    )
-    if fused and method == "fused":
-        solver = "aca"
+    scoring = "inliers" if method == "ransac" else method
 
     if confidence is not None:
         chunk = min(256, max_iters)
-        if fused:
-            chunk = -(-chunk // 128) * 128
         config = RansacConfig(
             num_hypotheses=chunk,
             threshold=ransac_reproj_threshold,
@@ -119,8 +89,6 @@ def find_homography(
             refine_iters=refine_iters,
             scoring=scoring,
             sampling=sampling,
-            fused=fused,
-            bf16_hypotheses=bf16_hypotheses,
         )
         fit = partial(
             ransac_homography_adaptive,
@@ -128,16 +96,13 @@ def find_homography(
             max_chunks=-(-max_iters // chunk),
         )
     else:
-        b = -(-max_iters // 128) * 128 if fused else max_iters
         config = RansacConfig(
-            num_hypotheses=b,
+            num_hypotheses=max_iters,
             threshold=ransac_reproj_threshold,
             solver=solver,
             refine_iters=refine_iters,
             scoring=scoring,
             sampling=sampling,
-            fused=fused,
-            bf16_hypotheses=bf16_hypotheses,
         )
         fit = partial(ransac_homography, config=config)
 

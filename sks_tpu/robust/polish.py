@@ -9,7 +9,7 @@ spatially-clustered real-image matches the two differ sharply away from the
 match cloud (extrapolation to image corners), which is where our round-2
 photo benchmark lost to cv2 (mean corner error 2.03 px vs 0.78 px).
 
-This module closes that gap TPU-natively — fixed shapes, fixed iteration
+This module closes that gap in compiled form — fixed shapes, fixed iteration
 counts, branch-free accept/reject — with one extra idea that measurably beats
 cv2's single-threshold LM on rendered-photo pairs: **threshold annealing**.
 The model is re-polished at a shrinking inlier threshold (1.0x, 0.7x, 0.5x of
@@ -96,7 +96,7 @@ def gn_refine_h(h0: Array, src: Array, tar: Array, weights: Array,
 
     Points are Hartley-normalized first (weighted mean/abs-dev similarity on
     each side) so the fp32 normal equations stay well-conditioned at pixel
-    coordinates — the polish runs in fp32 on TPU.
+    coordinates — the polish runs in fp32.
 
     Args:
       h0: (3, 3) initial model (any scale, finite).

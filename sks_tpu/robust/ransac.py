@@ -1,6 +1,6 @@
 """Fixed-shape vectorized RANSAC for homography fitting.
 
-The TPU-native replacement for the data-dependent RANSAC loop (SURVEY.md §7
+The compiled replacement for the data-dependent RANSAC loop (SURVEY.md §7
 hard part (d)): instead of iterating until a confidence bound is met, generate
 a *fixed* batch of B hypotheses (sized for the worst-case outlier ratio, just
 like the reference's RANSAC-motivated batch sizes, ``imgs/GPU-runtime.png``),
@@ -33,7 +33,6 @@ __all__ = [
     "magsac_weights",
     "ransac_homography",
     "ransac_homography_adaptive",
-    "ransac_homography_fused",
     "sample_minimal_sets",
     "sample_minimal_sets_prosac",
     "prosac_prefix_sizes",
@@ -99,7 +98,7 @@ class RansacConfig:
     # to scoring B hypotheses.
     lo_candidates: int = 4
     # Score residuals in double-word (df64) arithmetic — fp64-grade inlier
-    # decisions on fp32-only TPUs (the reference scores in fp64 everywhere;
+    # decisions from fp32 arithmetic (the reference scores in fp64 everywhere;
     # ops/df64.residual2_df64).  ~10x elementwise scoring cost; off by
     # default.
     df64_scoring: bool = False
@@ -110,16 +109,6 @@ class RansacConfig:
     # pairs (bench_results/REAL_PHOTO.md).  O(N) per iteration; on by
     # default.
     final_polish: bool = True
-    # Evaluate hypothesis chunks with the Pallas fused solve+score kernel
-    # (TPU production path; kernels/aca_pallas.aca_solve_score_soa).
-    # Composes with the adaptive early-exit loop, PROSAC sampling, and
-    # point_mask.  Requires solver='aca', scoring in
-    # {'inliers','msac','magsac'}, num_hypotheses % 128 == 0.
-    fused: bool = False
-    # Store minimal-set coordinates in bfloat16 on the fused path (halves
-    # the dominant HBM stream; the kernel computes in fp32 — storage
-    # roundoff ~0.4 px on pixel coords, below any RANSAC threshold).
-    bf16_hypotheses: bool = False
 
 
 @jax.tree_util.register_pytree_node_class
@@ -228,12 +217,15 @@ def _residual2(h: Array, src: Array, tar: Array,
     whole thing fuses into one bandwidth-light elementwise pass.  With
     ``df64=True`` the transfer chain runs in double-word arithmetic
     (:func:`sks_tpu.ops.df64.residual2_df64`) — fp64-grade residual ordering
-    on fp32-only TPUs, at ~10x the elementwise cost.
+    from fp32 arithmetic, at ~10x the elementwise cost.
     """
     if df64:
         from sks_tpu.ops.df64 import residual2_df64
 
         return residual2_df64(h, src, tar)
+    # Unnormalised hypotheses (the division-free ACA core reaches ~1e20 at
+    # pixel coordinates) would overflow float32 in the adjugate's products.
+    h = h / jnp.max(jnp.abs(h), axis=(-2, -1), keepdims=True)
     d1 = apply_homography(h, src) - tar[..., None, :, :]
     hinv = inv_h(h)
     d2 = apply_homography(hinv, tar) - src[..., None, :, :]
@@ -379,62 +371,8 @@ def _sample_chunk(key, n, config, prosac_sizes=None, point_mask=None):
     raise ValueError(f"unknown sampling {config.sampling!r}")
 
 
-def _eval_chunk_fused(key, src, tar, config, point_mask, prosac_sizes=None):
-    """Fused-kernel twin of :func:`_eval_chunk` (same contract).
-
-    All B hypotheses are solved and scored inside one VMEM-resident Pallas
-    kernel (``kernels.aca_pallas.aca_solve_score_soa``) — only 4 B/hypothesis
-    of score reach HBM.  The top-K winning minimal sets are re-solved and
-    re-scored on the XLA path so downstream selection/polish sees exactly the
-    general path's numbers.  Composes with PROSAC indices, padded point sets,
-    and bf16 hypothesis storage (``config.bf16_hypotheses``).
-    """
-    from sks_tpu.kernels.aca_pallas import aca_solve_score_soa, to_soa
-
-    assert config.solver == "aca", "fused path is ACA-only"
-    assert config.scoring in ("inliers", "msac", "magsac"), config.scoring
-    b = config.num_hypotheses
-    assert b % 128 == 0, "num_hypotheses must be a multiple of 128 (SoA lanes)"
-    n = src.shape[-2]
-    idx = _sample_chunk(key, n, config, prosac_sizes, point_mask)
-    s4 = jnp.take(src, idx, axis=0)
-    t4 = jnp.take(tar, idx, axis=0)
-
-    store = jnp.bfloat16 if config.bf16_hypotheses else src.dtype
-    pts = jnp.concatenate([src.T, tar.T], axis=0)  # (4, N) rows x,y,x',y'
-    t2 = jnp.asarray(fused_kernel_threshold(config), jnp.float32)
-    pw = None if point_mask is None else point_mask.astype(jnp.float32)
-    counts = aca_solve_score_soa(
-        to_soa(s4).astype(store), to_soa(t4).astype(store), pts, t2,
-        point_weights=pw, scoring=config.scoring,
-    )
-    # SoA index (j, lane) is hypothesis j*128 + lane: reshape(-1) is id order.
-    k_cand = max(1, min(config.lo_candidates, b))
-    _, top_idx = jax.lax.top_k(counts.reshape(-1), k_cand)
-
-    # Only the K winning minimal sets are re-solved on the XLA path.
-    s4k, t4k = s4[top_idx], t4[top_idx]
-    h_top = SOLVERS_H["aca"](s4k, t4k)
-    h_top = jnp.where(
-        aca_valid_mask(s4k, t4k)[..., None, None], h_top, jnp.nan
-    )
-    sc_top, inl = score_hypotheses(
-        h_top, src, tar, config.threshold, point_mask, config.scoring,
-        config.sigma_max, config.df64_scoring,
-    )
-    # The kernel ordered candidates by its own counts; the XLA re-score can
-    # disagree near ties (different summation order / sigma weighting), and
-    # _refine_and_pack's contract is "best first" — re-sort by the re-score
-    # (ADVICE r3).
-    order = jnp.argsort(-sc_top)
-    return h_top[order], sc_top[order], inl[order[0]]
-
-
 def _eval_chunk(key, src, tar, config, point_mask, prosac_sizes=None):
     """Sample + solve + score one fixed-shape batch; return its champion."""
-    if config.fused:
-        return _eval_chunk_fused(key, src, tar, config, point_mask,
-                                 prosac_sizes)
     n = src.shape[-2]
     solver = SOLVERS_H[config.solver]
     idx = _sample_chunk(key, n, config, prosac_sizes, point_mask)
@@ -560,16 +498,7 @@ def ransac_homography(
     )
 
 
-#: Adaptive-loop chunk size from which the fused Pallas kernel beats the XLA
-#: chunk path (measured per-chunk at n_points=512: fused wins from B=65536,
-#: 3.7 vs 4.3 ms, and widens with B and with the point count; at chunk=256
-#: the kernel's launch overhead loses ~250x — bench_results/
-#: FUSED_ADAPTIVE.json).  Stages below this run XLA even with
-#: ``config.fused`` — the loop picks the winner per stage.
-FUSED_ADAPTIVE_MIN_CHUNK = 65536
-
-#: Default cap on the geometric chunk growth (a distinct quantity from the
-#: fused gate above): measured, growing to 2^17 beat a 4096 cap by ~10% at
+#: Default cap on the geometric chunk growth: measured, growing to 2^17 beat a 4096 cap by ~10% at
 #: high outlier rates — XLA chunk cost is ~linear in size above 4096, so a
 #: large cap only sheds loop-iteration overhead.
 ADAPTIVE_MAX_CHUNK = 131072
@@ -631,25 +560,20 @@ def ransac_homography_adaptive(
     ~1.6x — see ``_chunk_schedule``); the bound-met exit makes the typical
     draw far smaller.
 
-    **Geometric chunk growth** (VERDICT r3 item 7): chunk sizes start at
+    **Geometric chunk growth**: chunk sizes start at
     ``config.num_hypotheses`` and grow ``growth``x every
     ``chunks_per_stage`` chunks up to ``max_chunk`` — a low-outlier fit
-    exits after one small chunk, while a high-outlier fit reaches batch
-    sizes where the fused Pallas kernel wins (stages >=
-    ``FUSED_ADAPTIVE_MIN_CHUNK`` run the kernel when ``config.fused``;
-    smaller stages always run XLA — the measured per-launch overhead
-    crossover, bench_results/FUSED_ADAPTIVE.json).  Each stage is its own
+    exits after one small chunk, while a high-outlier fit reaches large
+    batches that shed per-chunk loop overhead.  Each stage is its own
     fixed-shape ``while_loop``; once the bound is met every later stage's
     loop runs zero iterations.  Everything stays static-shape — the
     data-dependent part is only the trip counts, which XLA supports natively
-    on TPU (SURVEY.md §7 hard part (d)).
+    (SURVEY.md §7 hard part (d)).
 
     ``confidence`` is traced (changing it does not recompile); ``max_chunks``,
     ``config``, and the schedule parameters are static.  ``max_chunk``
-    defaults to 2^17 on both paths (measured: XLA chunk cost is ~linear in
-    size above 4096, so large chunks only shed loop overhead, and the fused
-    kernel's winning regime becomes reachable); ``growth=1`` recovers the
-    flat round-3 schedule.
+    defaults to 2^17 (XLA chunk cost is ~linear in size above 4096, so large
+    chunks only shed loop overhead); ``growth=1`` recovers a flat schedule.
     """
     nf = (
         jnp.sum(point_mask).astype(src.dtype)
@@ -691,11 +615,7 @@ def ransac_homography_adaptive(
     )
 
     for c_s, n_s in stages:
-        cfg_s = replace(
-            config,
-            num_hypotheses=c_s,
-            fused=config.fused and c_s >= FUSED_ADAPTIVE_MIN_CHUNK,
-        )
+        cfg_s = replace(config, num_hypotheses=c_s)
 
         def cond(state, n_s=n_s):
             j, (_, _, _, _, ninl, done) = state
@@ -737,53 +657,3 @@ def ransac_homography_adaptive(
         h_top, sc_top, inl_best, src, tar, config, point_mask
     )
 
-
-def fused_kernel_threshold(config: RansacConfig) -> float:
-    """The squared threshold the fused kernel wants for config.scoring.
-
-    'inliers'/'msac' gate at threshold^2; 'magsac' at (k * sigma_max)^2 (see
-    :func:`magsac_weights`).
-    """
-    if config.scoring == "magsac":
-        sm = (config.sigma_max if config.sigma_max is not None
-              else 3.0 * config.threshold)
-        return (_MAGSAC_K * sm) ** 2
-    return config.threshold * config.threshold
-
-
-@partial(jax.jit, static_argnames=("config",))
-def ransac_homography_fused(
-    key: Array,
-    src: Array,
-    tar: Array,
-    config: RansacConfig = RansacConfig(),
-    point_mask: Array | None = None,
-) -> RansacResult:
-    """RANSAC with the Pallas fused ACA solve+score kernel on the hot path.
-
-    The production TPU configuration (SURVEY.md §7 layer 2): all B hypothesis
-    homographies are solved and scored *inside one VMEM-resident kernel*
-    (``sks_tpu.kernels.aca_pallas.aca_solve_score_soa``) — only the 4-byte
-    score per hypothesis ever reaches HBM, cutting hypothesis-stage traffic
-    from ~100 to ~68 bytes/hypothesis.  Points stream through SMEM blocks
-    (N unbounded); ``point_mask`` handles padded sets; scoring may be
-    'inliers', 'msac', or 'magsac' (sigma-marginalized).  Only the top-K
-    winning minimal sets are re-solved on the XLA path, then polished exactly
-    like :func:`ransac_homography` — results match the general path with
-    solver='aca' up to hypothesis-sampling RNG.
-
-    Remaining constraints vs the general path: solver is ACA;
-    ``config.num_hypotheses`` must be a multiple of 128 (SoA lane width);
-    scoring='lmeds' (a median, not a sum) stays XLA-only.
-
-    Equivalent to ``ransac_homography`` with ``config.fused=True``; kept as
-    a named entry point.  For the confidence early-exit loop use
-    ``ransac_homography_adaptive`` with ``config.fused=True`` (each chunk
-    runs the fused kernel).
-    """
-    h_top, sc_top, inl_best = _eval_chunk_fused(
-        key, src, tar, config, point_mask
-    )
-    return _refine_and_pack(
-        h_top, sc_top, inl_best, src, tar, config, point_mask
-    )

@@ -1,7 +1,7 @@
 """Planar SLAM/SfM layers: pose graph, bundle adjustment, odometry.
 
 New capability per BASELINE.json's north star (the reference stops at the
-homography solver); designed TPU-first: fixed-shape residual sets, masked
+homography solver); designed for compiled accelerator programs: fixed-shape residual sets, masked
 observations, Gauss-Newton with on-device dense/Schur solves, landmark
 sharding over the mesh with psum reductions.
 """

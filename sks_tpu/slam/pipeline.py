@@ -2,11 +2,10 @@
 
 The full planar-VO front+back end fused into a single compiled program:
 pyramid Harris detection, oriented patch description, mutual-NN/ratio
-matching, vectorized RANSAC (optionally the fused Pallas kernel), homography
--> pose decomposition, metric scale chaining.  No host round trips between
-stages — the whole T-frame batch is device-resident from pixels to
-trajectory (the reference's pipelines cross the host boundary at every
-OpenCV call; SURVEY.md §3).
+matching, vectorized RANSAC, homography -> pose decomposition, metric scale
+chaining.  No host round trips between stages — the whole T-frame batch is
+device-resident from pixels to trajectory (the reference's pipelines cross
+the host boundary at every OpenCV call; SURVEY.md §3).
 
 Two entry points:
 
@@ -15,14 +14,13 @@ Two entry points:
   consecutive frame *pairs* shard across the mesh (each chip matches and
   fits its pair shard — detection/matching/RANSAC are embarrassingly
   parallel over pairs), one ``all_gather`` of the tiny per-pair
-  (R, t/d, n, inliers) tuples rides ICI, and the metric chain (an
+  (R, t/d, n, inliers) tuples crosses devices, and the metric chain (an
   associative scan over T 4x4 matrices) is replicated.  Matches the
   single-device result to float tolerance (same per-pair fold_in streams;
   XLA may reassociate reductions under shard_map, flipping borderline
   ratio-test matches — see tests/test_pipeline.py).
 
-Benchmarked in ``bench/pipeline_fps.py`` (frames/s on the real chip ->
-``bench_results/PIPELINE_FPS.json``).
+Benchmarked in ``bench/pipeline_fps.py`` (frames/s on the device).
 """
 
 from __future__ import annotations
@@ -174,9 +172,8 @@ def planar_slam(
         DEFAULT ON (8, round 5): the symmetric full-frame polish beats the
         feature-only fit on every bundled photo texture's VO
         (``slam.tracking.esm_polish_pair_symmetric``; pinned by
-        tests/test_photo_pipeline.py) at ~64 pairs/s on a v5e — the
-        capstone defaults to accuracy; pass 0 for the pure-feature
-        throughput configuration (~1,420 pairs/s).
+        tests/test_photo_pipeline.py) — the capstone defaults to accuracy;
+        pass 0 for the pure-feature throughput configuration.
 
     Returns:
       dict: poses (T, 4, 4), rel (T-1, 4, 4), num_inliers (T-1,),
@@ -257,7 +254,7 @@ def sharded_frames_to_poses(
             key, f1s, f2s, k_mat, config, num_corners, num_octaves,
             plane_normal, pair_offset=idx * per_dev,
         )
-        # Tiny per-pair results ride ICI; the chain is replicated.
+        # Tiny per-pair results cross devices; the chain is replicated.
         r = jax.lax.all_gather(r, axis, tiled=True)
         t_over_d = jax.lax.all_gather(t_over_d, axis, tiled=True)
         n = jax.lax.all_gather(n, axis, tiled=True)
@@ -305,10 +302,10 @@ def sharded_planar_slam(
     (consecutive stream + ``CLOSURE_STREAM_OFFSET`` closure stream), so the
     sharded capstone matches the single-device one up to float-reassociation
     tolerance.  One ``all_gather`` of the tiny (R, t/d, n, inliers) tuples
-    rides ICI; the metric chain + pose-graph relaxation
+    crosses devices; the metric chain + pose-graph relaxation
     (``odometry.assemble_trajectory``) are replicated — BASELINE config 5's
     "keyframe-sharded matching + distributed BA" shape at the capstone
-    level (VERDICT r3 item 4).
+    level.
 
     ``esm_iters > 0`` densely ESM-polishes every sharded pair fit before
     pose recovery, matching :func:`planar_slam`'s option (ADVICE r4) —

@@ -152,8 +152,8 @@ def optimize_posegraph_dense(
     forward pass) and a Cholesky-sized direct solve — exact normal-equation
     steps, no sequential chain.  Same math at CG convergence — validated
     against the CG path in tests/test_slam.py.  NOT currently wired as a
-    default: measured *slower* than CG on real TPU hardware at the capstone
-    T (the jacfwd batch materializes the full dense Jacobian), so
+    default: the jacfwd batch materializes the full dense Jacobian, which
+    measured slower than CG at the capstone T, so
     ``slam.odometry`` keeps CG unconditionally and this stays a debug/
     validation alternative (ADVICE r4).
     """

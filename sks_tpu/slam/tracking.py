@@ -1,4 +1,4 @@
-"""Direct (dense) homography tracking on SL(3): ESM, TPU-native.
+"""Direct (dense) homography tracking on SL(3): ESM.
 
 The dense complement to the feature+RANSAC front end: instead of detecting
 and matching sparse corners, align the raw pixels of a template region to
@@ -9,29 +9,24 @@ tracker used by planar SLAM/AR systems; the reference repo has no tracking
 layer at all (its scope ends at the 4-point solve), so this layer is new
 capability toward the BASELINE planar-SLAM north star.
 
-TPU-first shape: fixed template size, fixed iteration counts, a
+Accelerator shape: fixed template size, fixed iteration counts, a
 coarse-to-fine pyramid of static depth, branch-free damped Gauss-Newton
 (accept/reject by ``where``), everything one jit — and trivially vmappable
 over many templates (multi-patch tracking is a batched call).
 
-**Sampling path (round 4, VERDICT r3 item 2b).**  The inner loop needs three
-bilinear samples per template pixel per iteration (warped image + its two
-gradients).  An irregular gather is the one access pattern the MXU/VPU
-cannot vectorize — the gather path measures 112 64x64 tracks/s on a v5e.
-``sampler='matmul'`` (default on TPU) reformulates the gather as dense
-linear algebra: the y-interpolation becomes a one-hot *row-weight* matrix
-``Wy (N, H)`` with ``(1-fy, fy)`` at rows ``(y0, y0+1)``, applied as ONE MXU
-matmul ``Wy @ [img | gx | gy] (H, 3W)``; the x-interpolation is then an
+**Sampling path.**  The inner loop needs three bilinear samples per
+template pixel per iteration (warped image + its two gradients).  The
+default (``sampler='gather'``, also what ``'auto'`` means) gathers them.
+``sampler='matmul'`` reformulates the gather as dense linear algebra: the
+y-interpolation becomes a one-hot *row-weight* matrix ``Wy (N, H)`` with
+``(1-fy, fy)`` at rows ``(y0, y0+1)``, applied as ONE matmul
+``Wy @ [img | gx | gy] (H, 3W)``; the x-interpolation is then an
 elementwise masked reduction with the analogous ``Wx (N, W)`` — zero
 irregular memory access, bit-identical weights to ``bilinear_sample``
-(same clamping), and the whole iteration lives on the MXU/VPU.  Cost is
-``N*H*3W`` MACs/iteration — compute the MXU is built for — instead of
-``12N`` scattered loads the VPU serializes.  Measured: **1,339 tracks/s,
-12.0x the gather path** (``bench_results/ESM_TRACK.json``) — the dense
-tracker ran an order of magnitude FASTER per pair than the round-4
-feature pipeline — which is why round 5 applied the same transformation
-to the descriptor stage (``features.descriptors.bilinear_sample_matmul``),
-taking the pipeline to ~1,120 pairs/s.
+(same clamping).  Its cost is ``N*H*3W`` MACs/iteration instead of ``12N``
+loads, a win only where gathers serialize: on an H100 the symmetric
+640x480 polish at 8 iterations takes 5.3 ms with gathers, 97 ms with the
+f32 matmul and 23 ms with ``'matmul_bf16'`` (PERF.md).
 
 Math (forward compositional, ESM gradient):
   warp  w(x; H) = pi(H x),   update  H <- H . exp(sum_k d_k G_k)
@@ -114,11 +109,10 @@ def esm_track(
         4 similarity, 6 affine, 8 full homography.  Small patches cannot
         constrain the projective parameters; 6-DOF is the standard
         small-patch model (the update stays inside SL(3) either way).
-      sampler: 'matmul' (one-hot MXU sampling, see module docstring),
-        'gather' (irregular bilinear gathers), or 'auto' (matmul on TPU,
-        gather elsewhere — the matmul trades gathers for dense FLOPs, a win
-        only where gathers serialize).  Identical results up to float
-        summation order.
+      sampler: 'gather' / 'auto' (bilinear gathers, the faster arm on the
+        GPU), 'matmul' (one-hot matmul sampling, see module docstring) or
+        'matmul_bf16' (the same in bf16).  Identical results up to float
+        summation order (bf16 rounding aside).
       stride: template-pixel subsampling step.  The matmul sampler's cost is
         linear in the number of template pixels (the (N, H) row-weight
         matmul dominates), so stride=2 cuts the per-iteration cost ~4x; the
@@ -157,9 +151,7 @@ def esm_track(
 
     igx, igy = _grad(image)
 
-    use_matmul = sampler in ("matmul", "matmul_bf16") or (
-        sampler == "auto" and jax.default_backend() == "tpu"
-    )
+    use_matmul = sampler in ("matmul", "matmul_bf16")
     # bf16 SAMPLING matmuls (f32 accumulation): quantizes interpolation
     # weights to 8 mantissa bits (~1/256-px sub-pixel resolution) and
     # intensities to ~0.4% — noise the 8-parameter normal equations
@@ -314,7 +306,7 @@ def esm_polish_pair(
     sampler: str = "auto",
     stride: int = 1,
 ) -> tuple:
-    """Dense ESM refinement of a pair homography (VERDICT r3 item 2a).
+    """Dense ESM refinement of a pair homography.
 
     The bridge between the feature front end and the direct tracker: a
     feature-RANSAC model ``h0`` (mapping ``img1`` pixel coords -> ``img2``
@@ -388,7 +380,7 @@ def esm_polish_pair_symmetric(
     round-4 half-frame one-direction polish):
     china 0.66 (1.06 / 1.91), hopper 0.45 (2.22 / 1.06),
     flower 1.00 (3.15 / 1.49) — every texture beats feature-only, which
-    is what lets the dense polish default on (VERDICT r4 item 3).
+    is what lets the dense polish default on.
 
     Args:
       img1, img2: (H, W) grayscale frames.
@@ -401,30 +393,23 @@ def esm_polish_pair_symmetric(
         texture x seed grid — template aliasing, see :func:`esm_track` —
         so accuracy-default configs keep 1.
       levels: 2 (default) = coarse-to-fine: run the full symmetric polish
-        at 1/2 resolution first (2x2-mean low-pass, so no aliasing; ~1/16
-        the per-iteration matmul cost), then ``fine_iters`` full-resolution
+        at 1/2 resolution first (2x2-mean low-pass, so no aliasing; 1/4
+        the pixels per iteration), then ``fine_iters`` full-resolution
         symmetric iterations from the upscaled model.  1 = single level
-        (all ``iters`` at full resolution).  Measured (chained device-side
-        timing, 240x320): 12.7 -> 7.2 ms/polish (1.76x) with photo-VO ATE
-        equal-or-better on every texture x seed cell (mean 0.84 -> 0.79%
+        (all ``iters`` at full resolution).  Photo-VO ATE is equal-or-better
+        than single-level on every texture x seed cell (mean 0.84 -> 0.79%
         of path over the 6-cell grid).
       fine_iters: full-resolution iteration cap when ``levels >= 2``.
       iters/dof/sampler: forwarded to :func:`esm_track` (iters is a cap —
-        the tracker early-exits on convergence).  ``sampler='auto'``
-        resolves to 'matmul_bf16' on TPU here (not plain 'matmul'): the
-        full-frame polish is bandwidth-bound in the sampling matmuls, and
-        the bf16-storage mode measures within noise of f32 on every photo
-        texture's VO ATE (china 0.69 vs 0.66, hopper 0.45 vs 0.45,
-        flower 1.05 vs 1.00 — all far below feature-only).
+        the tracker early-exits on convergence).  ``sampler='auto'`` is
+        'gather'; of the matmul arms, 'matmul_bf16' measures within noise
+        of f32 on every photo texture's VO ATE (china 0.69 vs 0.66, hopper
+        0.45 vs 0.45, flower 1.05 vs 1.00).
 
     Returns:
       (h (3, 3) refined img1->img2, mean fwd/bwd rms photometric residual).
     """
     from sks_tpu.geom.lie import expm3, logm3_near_identity, mm_small
-
-    if sampler == "auto":
-        sampler = ("matmul_bf16" if jax.default_backend() == "tpu"
-                   else "gather")
 
     def sym_once(i1, i2, h_init, bdr, its):
         h_img, w_img = i1.shape

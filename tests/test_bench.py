@@ -60,3 +60,33 @@ def test_markdown_rendering():
     }]
     md = to_markdown(rows)
     assert "aca" in md and "0.26x" in md
+
+
+def test_device_peaks_unknown_kind_raises():
+    from sks_tpu.bench.headline import DEVICE_PEAKS, device_peaks
+
+    for kind, peaks in DEVICE_PEAKS.items():
+        assert device_peaks(kind) is peaks and peaks["hbm_gbps"] > 0
+    with pytest.raises(KeyError, match="no published peaks"):
+        device_peaks("cpu")
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_off_the_gpu(tmp_path, where):
+    """On the CPU, or without the library beside it, chip_smoke.py exits
+    non-zero and never prints the ok line."""
+    import os
+    import shutil
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    script = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    if where == "alone":
+        script = Path(shutil.copy(script, tmp_path / "chip_smoke.py"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["JAX_PLATFORMS"] = "cpu"
+    r = subprocess.run([sys.executable, str(script)], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0, r.stdout
+    assert '"ok"' not in r.stdout

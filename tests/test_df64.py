@@ -145,7 +145,7 @@ def test_residual2_df64_accuracy(key):
 @pytest.mark.slow
 def test_ndlt_df64_fixture_grade(key):
     """df64 NDLT reaches fp64-grade accuracy where plain f32 fails by ~1e3 px
-    (the VERDICT r1 golden-test exclusion, now deletable)."""
+    (the golden-test exclusion this test made deletable)."""
     import numpy as np
 
     from sks_tpu.data.fixture import GT_H, load_correspondences

@@ -77,7 +77,7 @@ def _median_reproj(h, s4, t4):
 # NDLT's f32 row runs the df64 (double-word) variant: the 9x9 normal matrix
 # squares the conditioning beyond plain f32 at raw pixel scale (measured
 # ~1e3 px median), and the reference only ever runs NDLT in fp64 — df64 is
-# the TPU-legal twin (ops/df64.ndlt_df64_h; measured 0.36 px median, equal
+# the fp32-arithmetic twin (ops/df64.ndlt_df64_h; measured 0.36 px median, equal
 # to true fp64).
 _GOLDEN_PX = {
     ("aca", "float32"): 1.5, ("aca", "float64"): 2e-9,

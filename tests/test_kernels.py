@@ -1,119 +1,23 @@
-"""Pallas kernels in interpreter mode (CPU CI; real-TPU runs happen in bench).
+"""The fused solve+score Triton kernel (Pallas interpreter on the CPU), and
+the straight-line solver cores against the batched ops they single-source.
 
-force_tpu_interpret_mode executes the same kernel code paths without TPU
-hardware, so layout/indexing bugs are caught in CI.
+The kernel runs here in Pallas's interpreter, which executes the same kernel
+body the card compiles, so indexing and padding bugs are caught without a
+GPU.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 from conftest import jit_of
+from sks_tpu.bench.fused_probe import aca_solve_score
 from sks_tpu.geom.homography import normalize_h
-from sks_tpu.kernels.aca_pallas import (
-    aca_solve_score_soa,
-    aca_solve_soa,
-    from_soa_h,
-    to_soa,
-)
-from sks_tpu.ops import aca_h
+from sks_tpu.ops import SOLVERS_H, aca_h
 from sks_tpu.robust.ransac import score_hypotheses
-from sks_tpu.utils.synth import random_quad_pairs
+from sks_tpu.utils.synth import random_correspondences, random_quad_pairs
 
-B = 256  # 2 sublane tiles of 128 lanes
-
-
-@pytest.fixture
-def soa_inputs(key):
-    src, tar = jit_of(lambda k: random_quad_pairs(k, B, jnp.float32))(key)
-    return src, tar, to_soa(src), to_soa(tar)
-
-
-def test_soa_roundtrip(soa_inputs):
-    src, _, s_soa, _ = soa_inputs
-    assert s_soa.shape == (8, B // 128, 128)
-    back = np.asarray(s_soa.reshape(8, B).T.reshape(B, 4, 2))
-    assert np.allclose(back, np.asarray(src))
-
-
-def test_pallas_solve_matches_jnp(soa_inputs):
-    src, tar, s_soa, t_soa = soa_inputs
-    with pltpu.force_tpu_interpret_mode():
-        h_soa = aca_solve_soa(s_soa, t_soa, tile=1)
-    h_p = normalize_h(from_soa_h(h_soa), "fro")
-    h_j = normalize_h(jit_of(aca_h)(src, tar), "fro")
-    assert np.allclose(np.asarray(h_p), np.asarray(h_j), atol=1e-5)
-
-
-def test_pallas_solve_score_matches_reference(key, soa_inputs):
-    src, tar, s_soa, t_soa = soa_inputs
-    # Points: inliers of the first hypothesis's homography + noise points.
-    n = 64
-    from sks_tpu.utils.synth import random_correspondences
-
-    ps, pt, _ = jit_of(
-        lambda k: random_correspondences(k, (), n, 1.0, jnp.float32)
-    )(key)
-    pts = jnp.stack([ps[:, 0], ps[:, 1], pt[:, 0], pt[:, 1]])  # (4, N)
-    thr = jnp.asarray(9.0, jnp.float32)
-
-    with pltpu.force_tpu_interpret_mode():
-        counts = aca_solve_score_soa(s_soa, t_soa, pts, thr, tile=1)
-    counts = np.asarray(counts.reshape(B))
-
-    h = aca_h(src, tar)
-    # Reference scoring counts r2_fwd + r2_bwd < thr (score_hypotheses uses
-    # the same symmetric metric).
-    sc, _ = score_hypotheses(h, ps, pt, 3.0)
-    assert counts.shape == (B,)
-    assert np.allclose(counts, np.asarray(sc), atol=0.5), (
-        counts[:8],
-        np.asarray(sc)[:8],
-    )
-
-
-def test_pallas_sks_matches_jnp(soa_inputs):
-    from sks_tpu.kernels.sks_pallas import sks_solve_soa
-    from sks_tpu.ops import sks_h
-
-    src, tar, s_soa, t_soa = soa_inputs
-    with pltpu.force_tpu_interpret_mode():
-        h_soa = sks_solve_soa(s_soa, t_soa, tile=1)
-    h_p = normalize_h(from_soa_h(h_soa), "fro")
-    h_j = normalize_h(jit_of(sks_h)(src, tar), "fro")
-    assert np.allclose(np.asarray(h_p), np.asarray(h_j), atol=1e-4)
-
-
-def test_pallas_bf16_storage_f32_compute(soa_inputs):
-    """bf16 I/O must match f32 compute on bf16-quantized inputs.
-
-    The kernel upcasts to f32 internally, so with inputs that are exactly
-    bf16-representable the only difference vs the f32 path is the final
-    bf16 store roundoff.
-    """
-    _, _, s_soa, t_soa = soa_inputs
-    s16 = s_soa.astype(jnp.bfloat16)
-    t16 = t_soa.astype(jnp.bfloat16)
-    with pltpu.force_tpu_interpret_mode():
-        h16 = aca_solve_soa(s16, t16, tile=1)
-        h32 = aca_solve_soa(s16.astype(jnp.float32),
-                            t16.astype(jnp.float32), tile=1)
-    assert h16.dtype == jnp.bfloat16
-    a = np.asarray(h16, np.float32)
-    b = np.asarray(h32)
-    # bf16 has 8 mantissa bits: store roundoff is ~0.4% relative.
-    scale = np.maximum(np.abs(b), 1e-3 * np.abs(b).max())
-    assert np.all(np.abs(a - b) <= 0.008 * scale), np.max(np.abs(a - b) / scale)
-
-
-def test_pallas_chain_dependency_is_noop(soa_inputs):
-    _, _, s_soa, t_soa = soa_inputs
-    with pltpu.force_tpu_interpret_mode():
-        h0 = aca_solve_soa(s_soa, t_soa, tile=1)
-        h1 = aca_solve_soa(s_soa, t_soa, chain=jnp.float32(123.0), tile=1)
-    assert np.allclose(np.asarray(h0), np.asarray(h1))
+B = 256
 
 
 @pytest.mark.parametrize("name", [
@@ -122,7 +26,6 @@ def test_pallas_chain_dependency_is_noop(soa_inputs):
 ])
 def test_baseline_cores_match_aos_ops(key, name):
     """Component cores == the AoS ops they single-source (f64, exact math)."""
-    from sks_tpu.ops import SOLVERS_H
     from sks_tpu.ops.ge import ge_core
     from sks_tpu.ops.gpt import gpt_core
     from sks_tpu.ops.ho import ho_core
@@ -144,58 +47,60 @@ def test_baseline_cores_match_aos_ops(key, name):
     assert np.allclose(a, b, atol=1e-9), np.max(np.abs(a - b))
 
 
-@pytest.mark.parametrize("name", [
-    "rho_ge", "gpt_lu", "ho",
-    pytest.param("ndlt", marks=pytest.mark.slow),
-])
-def test_baseline_pallas_matches_aos(soa_inputs, name):
-    """SoA Pallas baseline kernels == AoS ops (interpret mode, f32)."""
-    from sks_tpu.kernels.baselines_pallas import SOA_SOLVERS
-    from sks_tpu.ops import SOLVERS_H
-
-    src, tar, s_soa, t_soa = soa_inputs
-    with pltpu.force_tpu_interpret_mode():
-        hk = from_soa_h(SOA_SOLVERS[name](s_soa, t_soa, tile=1))
-    a = np.asarray(normalize_h(hk, "fro"))
-    b = np.asarray(normalize_h(jit_of(SOLVERS_H[name])(src, tar), "fro"))
-    # f32 path differences (op order, eigensolver iteration count) bound the
-    # tolerance; oracle-grade accuracy is asserted separately below.
-    assert np.allclose(a, b, atol=2e-3), np.max(np.abs(a - b))
-
-
-@pytest.mark.parametrize("name", [
-    "rho_ge", "gpt_lu", "ho",
-    pytest.param("ndlt", marks=pytest.mark.slow),  # covered by matches_aos
-])
-def test_baseline_pallas_oracle(key, name):
-    """SoA Pallas baselines recover exact homographies (sub-millipixel)."""
-    from sks_tpu.geom.homography import apply_homography
-    from sks_tpu.kernels.baselines_pallas import SOA_SOLVERS
-    from sks_tpu.utils.synth import random_correspondences
-
-    src, tar, _ = jit_of(
-        lambda k: random_correspondences(k, (128,), 4, 0.0, jnp.float32)
+def _points(key, n):
+    ps, pt, _ = jit_of(
+        lambda k: random_correspondences(k, (), n, 1.0, jnp.float32)
     )(key)
-    with pltpu.force_tpu_interpret_mode():
-        hk = from_soa_h(SOA_SOLVERS[name](to_soa(src), to_soa(tar), tile=1))
-    r = float(jnp.max(jnp.abs(apply_homography(hk, src) - tar)))
-    assert r < 5e-3, r
+    return ps, pt
 
 
-def test_df64_pallas_matches_xla_df64(soa_inputs):
-    """The VMEM-resident df64 kernel must reproduce the XLA df64 path
-    (identical cores on DF pairs; bit-exact hi and hi+lo measured on TPU,
-    tolerance here guards interpret-mode float quirks)."""
-    from sks_tpu.kernels.df64_pallas import df64_solve_soa
-    from sks_tpu.ops.df64 import aca_df64
+def test_pallas_solve_score_matches_reference(key):
+    """Fused kernel inlier counts == score_hypotheses (ties excepted)."""
+    src, tar = jit_of(lambda k: random_quad_pairs(k, B, jnp.float32))(key)
+    ps, pt = _points(key, 64)
+    counts = np.asarray(aca_solve_score(src, tar, ps, pt, 3.0, block_b=128,
+                                        block_n=16))
+    # Reference scoring counts r2_fwd + r2_bwd < thr^2 (the same symmetric
+    # metric).
+    sc, _ = score_hypotheses(aca_h(src, tar), ps, pt, 3.0)
+    assert counts.shape == (B,)
+    assert np.allclose(counts, np.asarray(sc), atol=0.5), (
+        counts[:8],
+        np.asarray(sc)[:8],
+    )
 
-    src, tar, s_soa, t_soa = soa_inputs
-    with pltpu.force_tpu_interpret_mode():
-        out = df64_solve_soa(s_soa, t_soa, kind="aca", tile=1)
-    ref = aca_df64(src, tar)
-    m = B // 128
-    ref_hi = jnp.transpose(ref.hi.reshape(m, 128, 9), (2, 0, 1))
-    ref_lo = jnp.transpose(ref.lo.reshape(m, 128, 9), (2, 0, 1))
-    assert np.allclose(np.asarray(out[:9]), np.asarray(ref_hi), atol=1e-6)
-    assert np.allclose(np.asarray(out[:9] + out[9:]),
-                       np.asarray(ref_hi + ref_lo), atol=1e-6)
+
+@pytest.mark.parametrize("scoring", ["msac", "magsac"])
+def test_fused_soft_scores_padded_weighted(key, scoring):
+    """Soft scores with N and B off the block sizes and zero-weight points.
+
+    B=200 and N=70 pad to the 64-wide blocks inside the wrapper; the last 10
+    points carry weight 0, like padded fixed-shape match arrays.
+    """
+    src, tar = jit_of(lambda k: random_quad_pairs(k, 200, jnp.float32))(key)
+    ps, pt = _points(key, 70)
+    pm = jnp.arange(70) < 60
+    got = np.asarray(aca_solve_score(
+        src, tar, ps, pt, 3.0, point_weights=pm, scoring=scoring,
+        block_b=64, block_n=64))
+    ref, _ = score_hypotheses(aca_h(src, tar), ps, pt, 3.0, point_mask=pm,
+                              scoring=scoring)
+    assert got.shape == (200,)
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-4, atol=1e-4)
+
+
+def test_fused_bf16_storage_matches_f32_on_bf16_inputs(key):
+    """bf16-stored minimal sets score as the f32 kernel on the same values."""
+    src, tar = jit_of(lambda k: random_quad_pairs(k, 128, jnp.float32))(key)
+    s16, t16 = src.astype(jnp.bfloat16), tar.astype(jnp.bfloat16)
+    ps, pt = _points(key, 64)
+    a = aca_solve_score(s16, t16, ps, pt, 3.0)
+    b = aca_solve_score(s16.astype(jnp.float32), t16.astype(jnp.float32),
+                        ps, pt, 3.0)
+    assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_fused_rejects_median_scoring(key):
+    src, tar = jit_of(lambda k: random_quad_pairs(k, 8, jnp.float32))(key)
+    with pytest.raises(ValueError):
+        aca_solve_score(src, tar, src[:, 0], tar[:, 0], 3.0, scoring="lmeds")

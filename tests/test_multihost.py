@@ -5,7 +5,7 @@ via ``jax.distributed`` into one 8-device cluster, runs hypothesis-sharded
 RANSAC over the ('host', 'hyp') global mesh, and asserts both workers return
 exactly the single-process 8-device result — the deterministic linearized
 device indexing makes the hypothesis streams identical regardless of the
-process topology.  This is the CI stand-in for a TPU pod (DCN) run.
+process topology.  This is the CI stand-in for a multi-host run.
 """
 
 import json
@@ -47,7 +47,7 @@ src, tar, _ = jax.jit(
 tar = tar.at[:32].set(
     jax.random.uniform(jax.random.PRNGKey(6), (32, 2), jnp.float32, 0, 640))
 
-mesh = global_mesh({"hyp": 4})          # ('host', 'hyp') = (2, 4) over DCN
+mesh = global_mesh({"hyp": 4})          # ('host', 'hyp') = (2, 4)
 src_g = replicate_to_mesh(np.asarray(src), mesh)
 tar_g = replicate_to_mesh(np.asarray(tar), mesh)
 key_g = replicate_to_mesh(np.asarray(key), mesh)

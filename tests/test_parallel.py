@@ -81,7 +81,7 @@ def test_sharded_ba_converges(key):
 
 def test_sharded_ndlt_matches_single_device(key):
     """Point-sharded NDLT (psum reduction) == single-device ndlt_h
-    (VERDICT r1: the SURVEY §5 sequence-parallel analogue)."""
+   ."""
     from sks_tpu.geom.homography import normalize_h
     from sks_tpu.ops.ndlt import ndlt_h
     from sks_tpu.parallel.sharded_refine import sharded_ndlt_h
@@ -118,7 +118,7 @@ def test_sharded_ho_matches_single_device(key):
 @pytest.mark.slow
 def test_sharded_ba_at_scale():
     """K=20 cameras, L=10,240 landmarks on the virtual mesh: converges to
-    the 0.5 px observation-noise floor (VERDICT r1 next-#9)."""
+    the 0.5 px observation-noise floor."""
     from sks_tpu.bench.ba_scale import run
 
     out = run(num_cams=20, num_points=10_240, iters=6)

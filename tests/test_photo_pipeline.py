@@ -48,9 +48,8 @@ def test_photo_pair_parity_vs_cv2():
 
 @pytest.mark.slow
 def test_photo_pair_parity_vs_cv2_hard():
-    """Hard-protocol accuracy gate (VERDICT r3 weak #1: the only accuracy
-    gate covered 2 easy pairs while the hard protocol's worst pair sat at 2x
-    cv2 ungated).  With sub-pixel Harris the hard protocol now beats cv2
+    """Hard-protocol accuracy gate (an earlier gate covered only 2 easy
+    pairs while the hard protocol's worst pair sat at 2x cv2 ungated).  With sub-pixel Harris the hard protocol now beats cv2
     (bench_results/REAL_PHOTO.md); this pins it from regressing."""
     cv2 = pytest.importorskip("cv2")
     from sks_tpu.bench.real_pipeline import pair_parity
@@ -115,7 +114,7 @@ def test_photo_pair_recovers_gt():
 
 @pytest.mark.slow
 def test_parallax_protocol_gate():
-    """Parallax regression gate (VERDICT r4 item 8a): off-plane structured
+    """Parallax regression gate: off-plane structured
     outliers must NEVER leak into the inlier set, and overall corner error
     stays at-or-below cv2's on the same matches (PARALLAX.json pinned)."""
     cv2 = pytest.importorskip("cv2")
@@ -139,7 +138,7 @@ def test_parallax_protocol_gate():
 @pytest.mark.slow
 @pytest.mark.parametrize("texture", ["china", "hopper", "flower"])
 def test_guarded_esm_never_degrades_vo(texture):
-    """The dense-polish default-on contract (VERDICT r4 item 3): on every
+    """The dense-polish default-on contract: on every
     bundled photo texture, guarded symmetric ESM polish must IMPROVE (or at
     worst match) the feature-only VO ATE.  The round-4 half-frame
     one-direction polish violated this on china (1.06 -> 1.91 % of path);

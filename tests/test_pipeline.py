@@ -105,7 +105,7 @@ def test_planar_slam_smoke(key):
 def test_sharded_planar_slam_matches_single_device(key):
     """The sharded capstone (consecutive + closure fits over one combined
     pair list) must reproduce the single-device planar_slam — same RNG
-    streams, same chain, same pose graph (VERDICT r3 item 4)."""
+    streams, same chain, same pose graph."""
     from sks_tpu.data.images import planar_sequence
     from sks_tpu.parallel import make_mesh
     from sks_tpu.slam.pipeline import planar_slam, sharded_planar_slam

@@ -1,4 +1,4 @@
-"""Direct tests for robust/polish.py (VERDICT r3 item 6).
+"""Direct tests for robust/polish.py.
 
 The annealed-threshold LM polish flipped the headline real-photo benchmark
 but was previously exercised only implicitly through RANSAC — these tests pin

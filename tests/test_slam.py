@@ -126,8 +126,8 @@ def test_posegraph_weights_disable_edges(key):
 def test_dense_posegraph_matches_cg(key):
     """The dense-GN pose graph (vectorized Jacobian + direct solve) must
     agree with the matrix-free CG optimizer at convergence — same normal
-    equations, different solvers.  (Dense measured slower on TPU, so CG
-    stays the default; dense is kept for small-graph CPU/debug use.)"""
+    equations, different solvers.  (Dense measured slower at the capstone
+    size, so CG stays the default; dense is kept for small-graph debug use.)"""
     from sks_tpu.geom.lie import se3_exp
     from sks_tpu.slam.posegraph import (
         PoseGraph,

@@ -30,7 +30,7 @@ from sks_tpu.ops import (
 )
 from sks_tpu.geom.homography import normalize_h, reprojection_error
 from sks_tpu.ops.aca_rect import rect_corners
-from sks_tpu.utils.synth import rect_offset_pairs
+from sks_tpu.utils.synth import random_correspondences, rect_offset_pairs
 
 TOL = {jnp.dtype("float32"): 2e-3, jnp.dtype("float64"): 1e-9}
 B = 32
@@ -202,10 +202,9 @@ def test_jit_and_vmap_compose(key, synth):
 
 
 def test_ndlt_invit_eig_matches_jacobi(key, synth):
-    """The f32 LDL^T inverse-iteration eigensolver (the Pallas NDLT
-    kernel's default: ~45% the flops of the 6-sweep Jacobi, took the
-    Table-8 NDLT row 9.8x -> 18.6x the reference fp64) is equal-or-better
-    at median and p99 reprojection on homography-consistent quads."""
+    """The f32 LDL^T inverse-iteration eigensolver (~45% the flops of the
+    6-sweep Jacobi) is equal-or-better at median and p99 reprojection on
+    homography-consistent quads."""
     from sks_tpu.ops.ndlt import ndlt_core
 
     src, tar, _ = synth(key, 4096, 4, 0.0, jnp.float32)
@@ -230,3 +229,41 @@ def test_ndlt_invit_eig_matches_jacobi(key, synth):
         np.median(r_inv), np.median(r_jac))
     assert np.quantile(r_inv, 0.99) <= 2.0 * np.quantile(r_jac, 0.99), (
         np.quantile(r_inv, 0.99), np.quantile(r_jac, 0.99))
+
+
+def test_dlt_condition_flags_collinear_corners():
+    """The smoke's conditioning measure: a rectangle is near its floor,
+    three collinear corners (on both sides, as an exact H keeps them) blow it
+    up, and scaling the pixels changes nothing."""
+    from chip_smoke import dlt_condition
+
+    sq = np.array([[0.0, 0.0], [640.0, 0.0], [640.0, 480.0], [0.0, 480.0]])
+    line = sq.copy()
+    line[1] = [320.0, 240.0]  # on the diagonal through corners 0 and 2
+    k = dlt_condition(np.stack([sq, sq, line]),
+                      np.stack([sq, sq * 0.5, line * 0.5 + 7.0]))
+    assert k[0] < 10 and abs(k[1] - k[0]) < 1e-9 * k[0], k
+    assert k[2] > 1e6, k
+
+
+@pytest.mark.parametrize("name", [
+    "aca", "sks", "rho_ge", "gpt_lu", "ho",
+    pytest.param("ndlt", marks=pytest.mark.slow),  # 9x9 Jacobi trace ~60s
+])
+def test_f32_corner_reprojection_within_smoke_bound(name):
+    """float32 exact-quad solves hold the smoke's max corner reprojection
+    bound on every quad within its condition-number limit."""
+    from chip_smoke import KAPPA_MAX, dlt_condition
+
+    src, tar, _ = jit_of(
+        lambda k: random_correspondences(k, (4096,), 4, 0.0, jnp.float32)
+    )(jax.random.PRNGKey(1))
+    held = dlt_condition(np.asarray(src), np.asarray(tar)) <= KAPPA_MAX
+    assert held.mean() > 0.99
+    h = np.asarray(jit_of(SOLVERS[name])(src, tar), np.float64)
+    s = np.asarray(src, np.float64)
+    hom = np.concatenate([s, np.ones_like(s[..., :1])], -1)
+    p = np.einsum("bij,bkj->bki", h, hom)
+    rep = np.linalg.norm(p[..., :2] / p[..., 2:] - np.asarray(tar, np.float64),
+                         axis=-1).max(axis=-1)
+    assert rep[held].max() <= 5e-3, rep[held].max()

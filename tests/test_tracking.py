@@ -96,7 +96,7 @@ def test_esm_batched_vmap(key):
 
 
 def test_esm_matmul_sampler_matches_gather():
-    """The one-hot MXU sampling path must agree with the gather path
+    """The one-hot matmul sampling path must agree with the gather path
     (identical bilinear weights; float summation order differs)."""
     import numpy as np
 
@@ -118,3 +118,23 @@ def test_esm_matmul_sampler_matches_gather():
     for h in (hg, hm):
         assert abs(float(h[0, 2]) - 30.0) < 0.1
         assert abs(float(h[1, 2]) - 20.0) < 0.1
+
+
+def test_esm_auto_sampler_is_gather():
+    """esm_track's default sampler='auto' runs the gather arm, bit for bit."""
+    import numpy as np
+
+    from sks_tpu.slam.tracking import esm_track
+
+    rng = np.random.RandomState(1)
+    img = jnp.asarray(
+        np.cumsum(np.cumsum(rng.rand(64, 80), 0), 1) / 1000, jnp.float32
+    )
+    tpl = img[16:40, 20:52]
+    h0 = jnp.asarray(
+        [[1.0, 0.0, 20.5], [0.0, 1.0, 15.6], [0.0, 0.0, 1.0]], jnp.float32
+    )
+    ha, ra = esm_track(tpl, img, h0, iters=4)
+    hg, rg = esm_track(tpl, img, h0, iters=4, sampler="gather")
+    assert np.array_equal(np.asarray(ha), np.asarray(hg))
+    assert float(ra) == float(rg)
